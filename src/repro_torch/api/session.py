@@ -1,0 +1,166 @@
+"""`GraphSession`: the facade over the engine.
+
+The session is the unit of engine state: it owns the partitioned graph on
+its device, the engine, and the keyed `ExecutableCache` shared by every
+query compiled in it. The port has the local backend only.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.api.compiled import CompiledQuery
+from repro_torch.core.backend import Kernels, resolve_kernels
+from repro_torch.core.cache import ExecutableCache
+from repro_torch.core.deprecation import facade_construction
+from repro_torch.core.engine import SubgraphMatcher
+from repro_torch.core.plan import QueryPlan
+from repro_torch.core.query import QueryGraph
+from repro_torch.core.result import MatchResult
+from repro_torch.graphstore.csr import Graph
+from repro_torch.graphstore.partition import PartitionedGraph
+
+BACKENDS = ("auto", "local")
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card. There is no silent CPU fallback: without a
+    GPU, ``None`` or a CUDA device raises; the CPU must be asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    return dev
+
+
+class GraphSession:
+    """A query session over one graph. Use `GraphSession.open`, not the
+    constructor. Usable as a context manager; `close()` drops the executable
+    cache."""
+
+    def __init__(self, pg: PartitionedGraph, engine, backend: str, cache: ExecutableCache):
+        self.pg = pg
+        self.backend = backend
+        self.cache = cache
+        self._engine = engine
+
+    # ------------------------------------------------------------- factory
+    @classmethod
+    def open(
+        cls,
+        graph_or_pg: Graph | PartitionedGraph,
+        *,
+        backend: str = "local",
+        kernels: "str | Kernels" = "auto",
+        device=None,
+        cache_size: int = 512,
+    ) -> "GraphSession":
+        """Open a session on ``device`` (``None``: the card; it raises if
+        there is none). A raw `Graph` is partitioned here into 1 shard.
+
+        ``kernels`` selects the kernel backend every dense inner step draws
+        from — ``"auto"`` (the CUDA kernels on a CUDA device, the plain
+        PyTorch versions elsewhere), ``"cuda"``, ``"torch"``, or a `Kernels`
+        instance (`repro_torch.core.backend`). The choice keys every cached
+        step, so sessions can compare kernel backends.
+        """
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        dev = resolve_device(device)
+        kern = resolve_kernels(kernels, dev)
+        if isinstance(graph_or_pg, PartitionedGraph):
+            pg = graph_or_pg
+        else:
+            pg = PartitionedGraph.build(graph_or_pg, 1)
+        if pg.n_shards != 1:
+            raise ValueError(
+                f"the local backend needs a 1-shard partition, got {pg.n_shards} shards"
+            )
+        cache = ExecutableCache(maxsize=cache_size)
+        with facade_construction():
+            engine = SubgraphMatcher(pg, device=dev, cache=cache, kernels=kern)
+        return cls(pg, engine, "local", cache)
+
+    # ----------------------------------------------------------- query API
+    def compile(self, query: QueryGraph, **caps) -> CompiledQuery:
+        """Plan ``query`` (Algorithm 2 + head selection + static capacities)
+        without running it. ``caps`` are `make_plan` keywords (``child_cap``,
+        ``join_rows_cap``, ``max_matches``, ...)."""
+        plan = self._engine.plan(query, **caps)
+        return CompiledQuery(session=self, query=query, plan=plan, caps=caps)
+
+    def run(
+        self,
+        query: QueryGraph,
+        *,
+        adaptive: bool = True,
+        deadline_s: float | None = None,
+        memory_budget_bytes: float | None = None,
+        retry_policy=None,
+        **caps,
+    ) -> MatchResult:
+        """One-shot convenience: ``compile(query).run()``."""
+        return self.compile(query, **caps).run(
+            adaptive=adaptive,
+            deadline_s=deadline_s,
+            memory_budget_bytes=memory_budget_bytes,
+            retry_policy=retry_policy,
+        )
+
+    def stream(
+        self,
+        query: QueryGraph,
+        *,
+        page_size: int = 256,
+        max_matches: int | None = None,
+        block_rows: int | None = None,
+        deadline_s: float | None = None,
+        **caps,
+    ):
+        """One-shot convenience: ``compile(query).stream(...)``."""
+        return self.compile(query, **caps).stream(
+            page_size=page_size,
+            max_matches=max_matches,
+            block_rows=block_rows,
+            deadline_s=deadline_s,
+        )
+
+    # ------------------------------------------------------------ plumbing
+    @property
+    def engine(self):
+        """The wrapped engine (for low-level access; prefer the facade)."""
+        return self._engine
+
+    @property
+    def device(self) -> torch.device:
+        return self._engine.device
+
+    @property
+    def kernels(self) -> Kernels:
+        """The kernel backend the engine's dense steps draw from."""
+        return self._engine.kernels
+
+    def set_kernels(self, kernels: "str | Kernels") -> "GraphSession":
+        """Switch the kernel backend for subsequent runs. Safe mid-session:
+        steps are keyed by (static spec, kernels name)."""
+        self._engine.kernels = resolve_kernels(kernels, self.device)
+        return self
+
+    def replan(self, query: QueryGraph, **caps) -> QueryPlan:
+        return self._engine.plan(query, **caps)
+
+    def close(self) -> None:
+        self.cache.clear()
+
+    def __enter__(self) -> "GraphSession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (
+            f"GraphSession(backend={self.backend!r}, device={str(self.device)!r}, "
+            f"kernels={self.kernels.name!r}, cache={len(self.cache)} steps)"
+        )

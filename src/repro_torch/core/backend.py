@@ -1,0 +1,151 @@
+"""The kernel backend layer: one swappable op set under the engine.
+
+Every dense inner step of the matcher that the JAX package runs as a TPU
+kernel — the bitset pack/lookup/build, the fused STwig expansion and the
+sort-merge join probe — is an op on a `Kernels` object. The engine calls
+through whatever `Kernels` it was opened with, and the backend's name is
+part of every `ExecutableCache` key.
+
+Registered backends:
+
+  * ``"torch"`` — the plain PyTorch versions (``kernels/<op>/ref.py``), on
+    whatever device the tensors lie on; the oracle for the kernels;
+  * ``"cuda"``  — the hand-written CUDA kernels (``csrc/*.cu``); a wrapper
+    given CPU tensors runs the plain version instead;
+  * ``"auto"``  — ``"cuda"`` for a CUDA device, ``"torch"`` otherwise
+    (`resolve_kernels`).
+
+The op contract is the JAX package's (``src/repro/core/backend.py``): ids
+are int32, flags are bool, and bitset words are 32-bit — held as
+``torch.int32`` bit patterns, since PyTorch's uint32 support is thin.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.bitset import bitset as _bitset
+from repro_torch.kernels.bitset import ref as _bitset_ref
+from repro_torch.kernels.hash_join import hash_join as _join
+from repro_torch.kernels.hash_join import ref as _join_ref
+from repro_torch.kernels.stwig_expand import ref as _expand_ref
+from repro_torch.kernels.stwig_expand.stwig_expand import stwig_expand as _expand_cuda
+
+n_words = _bitset_ref.n_words
+
+
+class Kernels:
+    """The op interface the engine programs against. The base class IS the
+    plain PyTorch implementation; the CUDA backend overrides every op."""
+
+    name = "torch"
+
+    # ---------------------------------------------------- packed bitsets
+    def bitset_pack(self, mask: torch.Tensor) -> torch.Tensor:
+        """(n,) bool (n % 32 == 0) → (n/32,) int32 packed words."""
+        return _bitset_ref.pack_reference(mask)
+
+    def bitset_lookup(self, words: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Membership test; negative / out-of-range ids are ``False``."""
+        return _bitset_ref.lookup_reference(words, ids)
+
+    def bitset_build(
+        self, ids: torch.Tensor, valid: torch.Tensor, nwords: int
+    ) -> torch.Tensor:
+        """Packed bitset from (possibly duplicated) masked ids."""
+        return _bitset_ref.build_reference(ids, valid, nwords)
+
+    # ------------------------------------------------------- exploration
+    def stwig_expand(self, words_k, dst_ids, dst_labels, indptr, root_ok, **kw):
+        """Fused steps 2-3: per-child filter + per-root compaction into
+        candidate lists ``(k, cap+1, C)`` with exact counts ``(k, cap)``.
+        Keywords: ``child_labels``, ``child_bound``, ``child_cap``, ``cap``,
+        ``n_total``."""
+        return _expand_ref.stwig_expand_reference(
+            words_k, dst_ids, dst_labels, indptr, root_ok, **kw
+        )
+
+    # -------------------------------------------------------------- join
+    def hash_join_probe(
+        self, ka_sorted, a_keys, a_valid, kb, b_keys, b_valid, *, dup_cap: int
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Sorted windowed probe with exact-key verification: ``hit`` and
+        sorted-side row indices, both ``(capB, dup_cap)``."""
+        return _join_ref.probe_reference(
+            ka_sorted, a_keys, a_valid, kb, b_keys, b_valid, dup_cap=dup_cap
+        )
+
+    # ------------------------------------------------------------ host
+    def mask_to_host(self, mask: torch.Tensor) -> np.ndarray:
+        """A device bool mask as a host numpy array, moved as packed words."""
+        return _bitset.mask_to_host(self.bitset_pack, mask)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"<Kernels {self.name!r}>"
+
+
+class CudaKernels(Kernels):
+    """The hand-written CUDA kernels (`repro_torch.kernels.*`)."""
+
+    name = "cuda"
+
+    def bitset_pack(self, mask):
+        return _bitset.bitset_pack(mask)
+
+    def bitset_lookup(self, words, ids):
+        return _bitset.bitset_lookup(words, ids)
+
+    def bitset_build(self, ids, valid, nwords):
+        return _bitset.bitset_build(ids, valid, nwords)
+
+    def stwig_expand(self, words_k, dst_ids, dst_labels, indptr, root_ok, **kw):
+        return _expand_cuda(words_k, dst_ids, dst_labels, indptr, root_ok, **kw)
+
+    def hash_join_probe(self, ka_sorted, a_keys, a_valid, kb, b_keys, b_valid, *, dup_cap):
+        return _join.hash_join_probe(
+            ka_sorted, a_keys, a_valid, kb, b_keys, b_valid, dup_cap=dup_cap
+        )
+
+
+# ------------------------------------------------------------------ registry
+_REGISTRY: dict[str, Callable[[], Kernels]] = {"torch": Kernels, "cuda": CudaKernels}
+_INSTANCES: dict[str, Kernels] = {}
+
+
+def get_kernels(name: str) -> Kernels:
+    """The (singleton) `Kernels` registered under ``name``."""
+    inst = _INSTANCES.get(name)
+    if inst is None:
+        if name not in _REGISTRY:
+            raise ValueError(
+                f"unknown kernel backend {name!r}; registered: {tuple(_REGISTRY)}"
+            )
+        inst = _INSTANCES[name] = _REGISTRY[name]()
+    return inst
+
+
+def resolve_kernels(spec: "str | Kernels | None", device: torch.device) -> Kernels:
+    """Normalize a user-facing kernels spec: a `Kernels` instance passes
+    through, ``None`` means ``"auto"``, and ``"auto"`` picks the CUDA
+    kernels on a CUDA device and the plain versions elsewhere."""
+    if isinstance(spec, Kernels):
+        return spec
+    name = spec or "auto"
+    if name == "auto":
+        name = "cuda" if torch.device(device).type == "cuda" else "torch"
+    return get_kernels(name)
+
+
+def rank_select(mask: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """Positions of ``mask``'s True entries of rank ``lo .. lo+n-1`` (int64,
+    in order); a rank past the last True entry gives ``len(mask)``.
+
+    This is the compaction that the JAX package writes as a scatter to
+    ``exclusive_cumsum(mask) - lo`` with ``mode="drop"``, computed instead as
+    a search of the inclusive prefix sum: no scatter, no host sync, and the
+    same result."""
+    incl = torch.cumsum(mask.to(torch.int64), 0)
+    want = torch.arange(lo + 1, lo + n + 1, dtype=torch.int64, device=mask.device)
+    return torch.searchsorted(incl, want, side="left")

@@ -1,0 +1,88 @@
+"""Wrappers of the packed-bitset CUDA kernels (``csrc/bitset.cu``).
+
+Each wrapper takes int32 word tensors (uint32 bit patterns). A CPU tensor
+goes to the plain version in `repro_torch.kernels.bitset.ref`; a CUDA
+tensor launches the kernel or raises.
+
+  * `bitset_lookup` replaces ``bitset_lookup`` of
+    ``src/repro/kernels/bitset/bitset.py`` — one thread per id;
+  * `bitset_pack` replaces ``bitset_pack`` of the same file — one warp per
+    word, a ballot of its 32 lanes;
+  * `bitset_build` replaces the TPU backend's XLA scatter + ``bitset_pack``
+    pair — Hopper has ``atomicOr``, so one thread per id ORs its bit into
+    words the wrapper zeroed.
+
+All three move a few bytes per element and compute nearly nothing, so the
+card's memory rate bounds them; the kernels read every input once,
+coalesced, and write every output once.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.bitset import ref
+from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+LOOKUP = CudaKernel("bitset", "bitset_lookup", [_P, _I, _P, _L, _P])
+BUILD = CudaKernel("bitset", "bitset_build", [_P, _P, _L, _P, _L])
+PACK = CudaKernel("bitset", "bitset_pack", [_P, _L, _P])
+
+
+def bitset_lookup(words: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``(W,)`` int32 words, ``(n,)`` int32 ids → ``(n,)`` bool membership;
+    negative and out-of-range ids are False."""
+    if on_cpu(words, ids):
+        return ref.lookup_reference(words, ids)
+    check(words, "words", torch.int32, 1)
+    check(ids, "ids", torch.int32, 1)
+    out = torch.empty(ids.shape, dtype=torch.bool, device=ids.device)
+    if ids.numel():
+        LOOKUP(words.data_ptr(), words.shape[0], ids.data_ptr(), ids.numel(), out.data_ptr())
+    return out
+
+
+def bitset_build(ids: torch.Tensor, valid: torch.Tensor, nwords: int) -> torch.Tensor:
+    """``(n,)`` int32 ids with ``(n,)`` bool validity → ``(nwords,)`` int32
+    words with the valid ids' bits set (a negative id wraps once; an id
+    still out of range is dropped)."""
+    if on_cpu(ids, valid):
+        return ref.build_reference(ids, valid, nwords)
+    check(ids, "ids", torch.int32, 1)
+    check(valid, "valid", torch.bool, 1)
+    if valid.shape != ids.shape:
+        raise ValueError(f"valid {tuple(valid.shape)} != ids {tuple(ids.shape)}")
+    words = torch.zeros(nwords, dtype=torch.int32, device=ids.device)
+    if ids.numel():
+        BUILD(ids.data_ptr(), valid.data_ptr(), ids.numel(), words.data_ptr(),
+              nwords * ref.WORD_BITS)
+    return words
+
+
+def bitset_pack(mask: torch.Tensor) -> torch.Tensor:
+    """``(n,)`` bool with ``n % 32 == 0`` → ``(n/32,)`` int32 words."""
+    if on_cpu(mask):
+        return ref.pack_reference(mask)
+    check(mask, "mask", torch.bool, 1)
+    n_w = ref.n_words(mask.shape[0])
+    if n_w * ref.WORD_BITS != mask.shape[0]:
+        raise ValueError(f"mask length {mask.shape[0]} is not a whole number of words")
+    words = torch.empty(n_w, dtype=torch.int32, device=mask.device)
+    if n_w:
+        PACK(mask.data_ptr(), n_w, words.data_ptr())
+    return words
+
+
+def mask_to_host(pack, mask: torch.Tensor):
+    """A device bool mask as a host numpy bool array, moved as packed words
+    (32 times fewer bytes cross to the host). ``pack`` is the backend's
+    `bitset_pack` op."""
+    n = mask.shape[0]
+    pad = ref.padded_bits(n) - n
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros(pad)])
+    words = pack(mask).cpu().numpy()
+    return ref.unpack_bitset(words, n)

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+These tests need a CUDA device and ``nvcc``; without a card they skip. On a
+GPU machine run them with
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+They import no JAX: the plain versions are themselves held to the JAX
+package by ``tests/test_torch_ops.py`` on the CPU.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.backend import get_kernels  # noqa: E402
+from repro_torch.kernels import cuda  # noqa: E402
+from repro_torch.kernels.bitset.ref import n_words  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def on(dev, x):
+    x = np.asarray(x)
+    if x.dtype == np.uint32:
+        x = x.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+def same(op, args, kw=None):
+    kw = kw or {}
+    before = cuda.launch_counts()[op]
+    got = getattr(get_kernels("cuda"), op)(*args, **kw)
+    want = getattr(get_kernels("torch"), op)(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()[op] == before + 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+def test_build_reports_every_source(dev):
+    cuda.build()  # nothing left to build after the first call
+    for name in cuda.SOURCES:
+        assert cuda.load(name) is not None
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+def test_bitset_lookup(dev, n):
+    rng = np.random.default_rng(n)
+    W = 4096
+    ids = rng.integers(-100, W * 32 + 100, n).astype(np.int32)
+    ids[:1] = 2**31 - 1
+    same("bitset_lookup", (on(dev, rng.integers(0, 2**32, W, dtype=np.uint32)), on(dev, ids)))
+
+
+@pytest.mark.parametrize("n", [5, 500, 1 << 18])
+def test_bitset_build_with_negative_ids(dev, n):
+    rng = np.random.default_rng(n)
+    nwords = 1024
+    ids = rng.integers(-2 * nwords * 32, nwords * 32 + 50, n).astype(np.int32)
+    ids[:2] = [-1, -(2**31)]
+    same("bitset_build", (on(dev, ids), on(dev, rng.random(n) < 0.7), nwords))
+
+
+@pytest.mark.parametrize("n_words_", [1, 7, 4096])
+def test_bitset_pack(dev, n_words_):
+    rng = np.random.default_rng(n_words_)
+    same("bitset_pack", (on(dev, rng.random(32 * n_words_) < 0.4),))
+
+
+@pytest.mark.parametrize("k,C,max_deg", [(1, 3, 5), (3, 8, 200), (5, 4, 3000)])
+def test_stwig_expand(dev, k, C, max_deg):
+    rng = np.random.default_rng(k)
+    cap, n_total = 500, 20000
+    deg = rng.integers(0, max_deg, cap)
+    deg[7] = max_deg  # one long segment: several 32-edge chunks, counts past C
+    E = int(deg.sum()) + 13  # a pad tail owned by the ghost row
+    indptr = np.concatenate([[0], np.cumsum(deg), [E]]).astype(np.int32)
+    labels = tuple(int(x) for x in rng.integers(0, 3, k))
+    same("stwig_expand", (
+        on(dev, rng.integers(0, 2**32, (k, n_words(n_total + 1)), dtype=np.uint32)),
+        on(dev, rng.integers(0, n_total, E).astype(np.int32)),
+        on(dev, rng.integers(0, 3, E).astype(np.int32)),
+        on(dev, indptr),
+        on(dev, rng.random(E) < 0.9),
+    ), dict(child_labels=labels, child_bound=tuple(bool(i % 2) for i in range(k)),
+            child_cap=C, cap=cap, n_total=n_total))
+
+
+@pytest.mark.parametrize("cap_a,cap_b,nk,dup", [(8, 1, 1, 6), (1000, 3000, 2, 16), (1 << 16, 1 << 14, 3, 64)])
+def test_hash_join_probe(dev, cap_a, cap_b, nk, dup):
+    rng = np.random.default_rng(cap_a)
+    keys = np.sort(rng.integers(0, 2**32, cap_a, dtype=np.uint64) % (cap_a // 2 + 1) * 977)
+    ka = keys.astype(np.uint32)
+    ka[-1] = 0xFFFFFFFF
+    kb = np.concatenate([ka[rng.integers(0, cap_a, cap_b - 1)], [0xFFFFFFFF]]).astype(np.uint32)
+    same("hash_join_probe", (
+        on(dev, ka), on(dev, rng.integers(0, 2, (cap_a, nk)).astype(np.int32)),
+        on(dev, rng.random(cap_a) < 0.9), on(dev, kb),
+        on(dev, rng.integers(0, 2, (cap_b, nk)).astype(np.int32)), on(dev, rng.random(cap_b) < 0.9),
+    ), dict(dup_cap=dup))
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    words = torch.zeros(8, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        get_kernels("cuda").bitset_lookup(words, torch.zeros(4, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="whole number of words"):
+        get_kernels("cuda").bitset_pack(torch.zeros(33, dtype=torch.bool, device=dev))
+
+
+def test_session_rows_equal_on_cpu_and_card(dev):
+    from repro_torch.api import GraphSession
+    from repro_torch.graphstore import generators
+    from repro_torch.workloads import dfs_query
+
+    g = generators.rmat(1500, 6000, 12, seed=3)
+    s_cpu, s_gpu = GraphSession.open(g, device="cpu"), GraphSession.open(g, device=dev)
+    assert s_gpu.kernels.name == "cuda"
+    rng = np.random.default_rng(0)
+    n = 0
+    while n < 4:
+        q = dfs_query(g, rng, 4)
+        if q is None:
+            continue
+        n += 1
+        a, b = s_cpu.run(q, max_matches=0), s_gpu.run(q, max_matches=0)
+        assert a.complete == b.complete and np.array_equal(a.rows, b.rows)
+        pa = [p.rows for p in s_cpu.stream(q, page_size=50, block_rows=64)]
+        pb = [p.rows for p in s_gpu.stream(q, page_size=50, block_rows=64)]
+        assert len(pa) == len(pb) and all(np.array_equal(x, y) for x, y in zip(pa, pb))

@@ -1,0 +1,43 @@
+"""The port stands alone: no module of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``
+(its numpy-only modules included — they are copied, not imported). Checked
+on the source with `ast`, so nothing is imported to check it."""
+import ast
+import pathlib
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__":
+            arg = node.args[0] if node.args else None
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                roots.add(arg.value.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(f.relative_to(ROOT)) for f in FILES])
+def test_no_jax_or_reference_import(path):
+    bad = _imported_roots(path) & set(BANNED)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_the_port_has_its_modules():
+    names = {str(f.relative_to(ROOT)) for f in FILES}
+    for mod in ("api/session.py", "core/engine.py", "core/match.py", "core/join.py",
+                "kernels/cuda.py", "runtime/resilience.py"):
+        assert f"src/repro_torch/{mod}" in names
+    assert (ROOT / "chip_smoke.py").exists()
