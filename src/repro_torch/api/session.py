@@ -6,10 +6,8 @@ query compiled in it. The port has the local backend only.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.api.compiled import CompiledQuery
-from repro_torch.core.backend import Kernels, resolve_kernels
+from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
 from repro_torch.core.cache import ExecutableCache
 from repro_torch.core.deprecation import facade_construction
 from repro_torch.core.engine import SubgraphMatcher
@@ -20,18 +18,6 @@ from repro_torch.graphstore.csr import Graph
 from repro_torch.graphstore.partition import PartitionedGraph
 
 BACKENDS = ("auto", "local")
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card. There is no silent CPU fallback: without a
-    GPU, ``None`` or a CUDA device raises; the CPU must be asked for."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions on the CPU"
-        )
-    return dev
 
 
 class GraphSession:

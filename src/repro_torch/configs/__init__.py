@@ -1,0 +1,5 @@
+"""Model configurations of the port: the dataclasses the ported model paths
+read, and one module per configuration (as ``src/repro/configs/``)."""
+from repro_torch.configs.base import RecSysConfig
+
+__all__ = ["RecSysConfig"]

@@ -1,10 +1,11 @@
 """The kernel backend layer: one swappable op set under the engine.
 
-Every dense inner step of the matcher that the JAX package runs as a TPU
-kernel — the bitset pack/lookup/build, the fused STwig expansion and the
-sort-merge join probe — is an op on a `Kernels` object. The engine calls
-through whatever `Kernels` it was opened with, and the backend's name is
-part of every `ExecutableCache` key.
+Every dense step that the JAX package runs as a TPU kernel — the bitset
+pack/unpack/lookup/build, the standalone candidate filter, the fused STwig
+expansion, the sort-merge join probe and the xDeepFM CIN layer — is an op
+on a `Kernels` object. The engine and `models.recsys.XDeepFM` call through
+whatever `Kernels` they were given, and the backend's name is part of
+every `ExecutableCache` key.
 
 Registered backends:
 
@@ -18,9 +19,11 @@ Registered backends:
 The op contract is the JAX package's (``src/repro/core/backend.py``): ids
 are int32, flags are bool, and bitset words are 32-bit — held as
 ``torch.int32`` bit patterns, since PyTorch's uint32 support is thin.
+`OP_CONTRACTS` states each op's example inputs and output dtypes.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -28,12 +31,73 @@ import torch
 
 from repro_torch.kernels.bitset import bitset as _bitset
 from repro_torch.kernels.bitset import ref as _bitset_ref
+from repro_torch.kernels.cin import cin as _cin
+from repro_torch.kernels.cin import ref as _cin_ref
 from repro_torch.kernels.hash_join import hash_join as _join
 from repro_torch.kernels.hash_join import ref as _join_ref
 from repro_torch.kernels.stwig_expand import ref as _expand_ref
 from repro_torch.kernels.stwig_expand.stwig_expand import stwig_expand as _expand_cuda
 
 n_words = _bitset_ref.n_words
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card. There is no silent CPU fallback: without a
+    GPU, ``None`` or a CUDA device raises; the CPU must be asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    return dev
+
+
+# ------------------------------------------------------------- op contracts
+@dataclasses.dataclass(frozen=True)
+class OpContract:
+    """The shape/dtype contract of one `Kernels` op, as the JAX package
+    declares it: ``make_args(device)`` returns ``(args, kwargs)`` of small
+    example inputs, and every backend's outputs must have ``out_dtypes``
+    (the JAX package's uint32 words are ``torch.int32`` bit patterns)."""
+
+    op: str
+    make_args: Callable[[torch.device], tuple[tuple, dict]]
+    out_dtypes: tuple[torch.dtype, ...]
+
+
+def _ex(shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+_I32, _BOOL, _F32 = torch.int32, torch.bool, torch.float32
+
+OP_CONTRACTS: tuple[OpContract, ...] = (
+    OpContract("bitset_pack", lambda dev: ((_ex((64,), _BOOL, dev),), {}), (_I32,)),
+    OpContract("bitset_unpack", lambda dev: ((_ex((2,), _I32, dev),), {}), (_BOOL,)),
+    OpContract("bitset_lookup",
+               lambda dev: ((_ex((2,), _I32, dev), _ex((8,), _I32, dev)), {}), (_BOOL,)),
+    OpContract("bitset_build",
+               lambda dev: ((_ex((8,), _I32, dev), _ex((8,), _BOOL, dev), 2), {}), (_I32,)),
+    OpContract("candidate_filter", lambda dev: ((
+        _ex((2,), _I32, dev), _ex((16,), _I32, dev), _ex((16,), _I32, dev),
+        _ex((16,), _BOOL, dev), 1), {}), (_BOOL,)),
+    OpContract("stwig_expand", lambda dev: ((
+        _ex((2, 2), _I32, dev),   # words_k
+        _ex((16,), _I32, dev),    # dst_ids
+        _ex((16,), _I32, dev),    # dst_labels
+        _ex((10,), _I32, dev),    # indptr (cap+2,)
+        _ex((16,), _BOOL, dev),   # root_ok
+    ), dict(child_labels=(1, 2), child_bound=(True, False), child_cap=4, cap=8,
+            n_total=63)), (_I32, _I32)),
+    OpContract("hash_join_probe", lambda dev: ((
+        _ex((16,), _I32, dev), _ex((16, 2), _I32, dev), _ex((16,), _BOOL, dev),  # A side
+        _ex((8,), _I32, dev), _ex((8, 2), _I32, dev), _ex((8,), _BOOL, dev),     # B side
+    ), dict(dup_cap=4)), (_BOOL, _I32)),
+    OpContract("cin_layer", lambda dev: ((
+        _ex((2, 3, 4), _F32, dev), _ex((2, 2, 4), _F32, dev), _ex((6, 3), _F32, dev),
+    ), {}), (_F32,)),
+)
 
 
 class Kernels:
@@ -47,6 +111,10 @@ class Kernels:
         """(n,) bool (n % 32 == 0) → (n/32,) int32 packed words."""
         return _bitset_ref.pack_reference(mask)
 
+    def bitset_unpack(self, words: torch.Tensor) -> torch.Tensor:
+        """(W,) int32 words → (W*32,) bool."""
+        return _bitset_ref.unpack_reference(words)
+
     def bitset_lookup(self, words: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Membership test; negative / out-of-range ids are ``False``."""
         return _bitset_ref.lookup_reference(words, ids)
@@ -58,6 +126,14 @@ class Kernels:
         return _bitset_ref.build_reference(ids, valid, nwords)
 
     # ------------------------------------------------------- exploration
+    def candidate_filter(
+        self, words, dst_ids, dst_labels, root_ok, child_label: int
+    ) -> torch.Tensor:
+        """Fused MatchSTwig step-2 filter for ONE child label, ``(E,)`` bool."""
+        return _bitset_ref.candidate_filter_reference(
+            words, dst_ids, dst_labels, root_ok, child_label
+        )
+
     def stwig_expand(self, words_k, dst_ids, dst_labels, indptr, root_ok, **kw):
         """Fused steps 2-3: per-child filter + per-root compaction into
         candidate lists ``(k, cap+1, C)`` with exact counts ``(k, cap)``.
@@ -76,6 +152,12 @@ class Kernels:
         return _join_ref.probe_reference(
             ka_sorted, a_keys, a_valid, kb, b_keys, b_valid, dup_cap=dup_cap
         )
+
+    # -------------------------------------------------------------- recsys
+    def cin_layer(self, xk, x0, w) -> torch.Tensor:
+        """One xDeepFM CIN layer: ``(B, H, d) × (B, m, d) × (H·m, H') →
+        (B, H', d)``, float32."""
+        return _cin_ref.cin_layer_reference(xk, x0, w)
 
     # ------------------------------------------------------------ host
     def mask_to_host(self, mask: torch.Tensor) -> np.ndarray:
@@ -100,6 +182,12 @@ class CudaKernels(Kernels):
     def bitset_build(self, ids, valid, nwords):
         return _bitset.bitset_build(ids, valid, nwords)
 
+    def bitset_unpack(self, words):
+        return _bitset.bitset_unpack(words)
+
+    def candidate_filter(self, words, dst_ids, dst_labels, root_ok, child_label):
+        return _bitset.candidate_filter(words, dst_ids, dst_labels, root_ok, child_label)
+
     def stwig_expand(self, words_k, dst_ids, dst_labels, indptr, root_ok, **kw):
         return _expand_cuda(words_k, dst_ids, dst_labels, indptr, root_ok, **kw)
 
@@ -107,6 +195,9 @@ class CudaKernels(Kernels):
         return _join.hash_join_probe(
             ka_sorted, a_keys, a_valid, kb, b_keys, b_valid, dup_cap=dup_cap
         )
+
+    def cin_layer(self, xk, x0, w):
+        return _cin.cin_layer(xk, x0, w)
 
 
 # ------------------------------------------------------------------ registry
@@ -124,6 +215,14 @@ def get_kernels(name: str) -> Kernels:
             )
         inst = _INSTANCES[name] = _REGISTRY[name]()
     return inst
+
+
+def op_contracts(name: str) -> tuple[OpContract, ...]:
+    """The contracts of backend ``name``: every registered backend implements
+    all of `OP_CONTRACTS`."""
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown kernel backend {name!r}; registered: {tuple(_REGISTRY)}")
+    return OP_CONTRACTS
 
 
 def resolve_kernels(spec: "str | Kernels | None", device: torch.device) -> Kernels:

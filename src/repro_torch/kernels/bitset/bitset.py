@@ -10,9 +10,13 @@ tensor launches the kernel or raises.
     word, a ballot of its 32 lanes;
   * `bitset_build` replaces the TPU backend's XLA scatter + ``bitset_pack``
     pair — Hopper has ``atomicOr``, so one thread per id ORs its bit into
-    words the wrapper zeroed.
+    words the wrapper zeroed;
+  * `bitset_unpack` replaces ``bitset_unpack`` of the same file — one
+    thread per four bits, one 4-byte store of four bools;
+  * `candidate_filter` replaces ``candidate_filter`` of the same file —
+    one thread per edge, the bit test of ``csrc/bitset.cuh``.
 
-All three move a few bytes per element and compute nearly nothing, so the
+All five move a few bytes per element and compute nearly nothing, so the
 card's memory rate bounds them; the kernels read every input once,
 coalesced, and write every output once.
 """
@@ -30,6 +34,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LOOKUP = CudaKernel("bitset", "bitset_lookup", [_P, _I, _P, _L, _P])
 BUILD = CudaKernel("bitset", "bitset_build", [_P, _P, _L, _P, _L])
 PACK = CudaKernel("bitset", "bitset_pack", [_P, _L, _P])
+UNPACK = CudaKernel("bitset", "bitset_unpack", [_P, _L, _P])
+FILTER = CudaKernel("bitset", "candidate_filter", [_P, _I, _P, _P, _P, _L, _I, _P])
 
 
 def bitset_lookup(words: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -74,6 +80,45 @@ def bitset_pack(mask: torch.Tensor) -> torch.Tensor:
     if n_w:
         PACK(mask.data_ptr(), n_w, words.data_ptr())
     return words
+
+
+def bitset_unpack(words: torch.Tensor) -> torch.Tensor:
+    """``(W,)`` int32 words → ``(W*32,)`` bool bits."""
+    if on_cpu(words):
+        return ref.unpack_reference(words)
+    check(words, "words", torch.int32, 1)
+    out = torch.empty(words.shape[0] * ref.WORD_BITS, dtype=torch.bool, device=words.device)
+    if words.numel():
+        UNPACK(words.data_ptr(), words.shape[0], out.data_ptr())
+    return out
+
+
+def candidate_filter(
+    words: torch.Tensor,
+    dst_ids: torch.Tensor,
+    dst_labels: torch.Tensor,
+    root_ok: torch.Tensor,
+    child_label: int,
+) -> torch.Tensor:
+    """``(E,)`` bool: ``root_ok ∧ dst_labels == child_label ∧ bit(dst_ids)``
+    over ``(W,)`` int32 words; an id outside the bitset is no member."""
+    if on_cpu(words, dst_ids, dst_labels, root_ok):
+        return ref.candidate_filter_reference(words, dst_ids, dst_labels, root_ok, child_label)
+    check(words, "words", torch.int32, 1)
+    check(dst_ids, "dst_ids", torch.int32, 1)
+    check(dst_labels, "dst_labels", torch.int32, 1)
+    check(root_ok, "root_ok", torch.bool, 1)
+    n = dst_ids.shape[0]
+    if dst_labels.shape[0] != n or root_ok.shape[0] != n:
+        raise ValueError(
+            f"edge arrays differ in length: dst_ids {n}, dst_labels "
+            f"{dst_labels.shape[0]}, root_ok {root_ok.shape[0]}"
+        )
+    out = torch.empty(n, dtype=torch.bool, device=dst_ids.device)
+    if n:
+        FILTER(words.data_ptr(), words.shape[0], dst_ids.data_ptr(), dst_labels.data_ptr(),
+               root_ok.data_ptr(), n, int(child_label), out.data_ptr())
+    return out
 
 
 def mask_to_host(pack, mask: torch.Tensor):

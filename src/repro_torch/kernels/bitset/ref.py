@@ -71,6 +71,14 @@ def padded_bits(n: int) -> int:
     return n_words(n) * WORD_BITS
 
 
+def unpack_reference(words: torch.Tensor) -> torch.Tensor:
+    """(W,) int32 words → (W*32,) bool, bit ``i`` of word ``i // 32`` at
+    position ``i``."""
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
+    # an arithmetic shift of the int32 pattern keeps bit s at position 0
+    return (((words[:, None] >> shifts) & 1) > 0).reshape(-1)
+
+
 def lookup_reference(words: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Membership of int32 ``ids`` in int32 ``words``. Negative or
     out-of-range ids are ``False`` (not clipped onto a real word)."""
@@ -92,3 +100,16 @@ def build_reference(
     lanes = torch.zeros(n_bits + 1, dtype=torch.bool, device=ids.device)
     lanes[idx] = True
     return pack_reference(lanes[:n_bits])
+
+
+def candidate_filter_reference(
+    words: torch.Tensor,
+    dst_ids: torch.Tensor,
+    dst_labels: torch.Tensor,
+    root_ok: torch.Tensor,
+    child_label: int,
+) -> torch.Tensor:
+    """The fused MatchSTwig step-2 filter for one child label, per edge:
+    ``root_ok ∧ dst_label == child_label ∧ bit(dst_id)``; a destination id
+    outside the bitset is no member (`lookup_reference`)."""
+    return root_ok & (dst_labels == child_label) & lookup_reference(words, dst_ids)

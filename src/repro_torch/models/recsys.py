@@ -1,0 +1,212 @@
+"""xDeepFM (arXiv:1803.05170) on PyTorch: sparse embeddings + CIN + DNN.
+
+The port of ``src/repro/models/recsys.py``. `XDeepFM` keeps the JAX
+package's parameter layout and names (``recsys_schema``): ``tables (F, V, d)``,
+``linear (F, V)``, ``bias``, ``cin.w{i} (H·m, H')``, ``cin_out``,
+``dnn.w{i} (in, out)`` / ``dnn.b{i}``, ``user_proj``, ``item_proj``, so
+`params_from_jax` carries the JAX package's weights over one to one.
+
+Heads (as in the JAX package):
+  * `XDeepFM.forward`         — the CTR logit (linear + CIN + DNN);
+  * `XDeepFM.retrieval_score` — one query against N candidates, one batched
+    product.
+
+The CIN layers run through ``Kernels.cin_layer`` — the hand-written CUDA
+kernel on the card (``csrc/cin.cu``), the plain version on the CPU. The DNN
+and projection products stay `torch.matmul`, as the JAX package leaves them
+to XLA. Serving only: parameters do not require gradients, and the CIN
+kernel has no backward yet (training is a later slice of the port).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import RecSysConfig
+from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
+
+
+def recsys_schema(cfg: RecSysConfig) -> dict[str, tuple[tuple[int, ...], str]]:
+    """Parameter name → (shape, init kind), in the JAX schema's order; a
+    dotted name is a leaf of a nested group (``cin.w0``)."""
+    F, V, d = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim
+    m = F
+    sch: dict[str, tuple[tuple[int, ...], str]] = {
+        "tables": ((F, V, d), "embed"),
+        "linear": ((F, V), "zeros"),
+        "bias": ((), "zeros"),
+    }
+    h_prev = m  # CIN layer k maps (H_{k-1} × m) interaction maps → H_k
+    for i, h_k in enumerate(cfg.cin_layers):
+        sch[f"cin.w{i}"] = ((h_prev * m, h_k), "he")
+        h_prev = h_k
+    sch["cin_out"] = ((sum(cfg.cin_layers), 1), "lecun")
+    dims = [F * d] + list(cfg.mlp_layers) + [1]
+    for i in range(len(dims) - 1):
+        sch[f"dnn.w{i}"] = ((dims[i], dims[i + 1]), "he")
+        sch[f"dnn.b{i}"] = ((dims[i + 1],), "zeros")
+    sch["user_proj"] = ((F * d, d), "lecun")
+    sch["item_proj"] = ((d, d), "lecun")
+    return sch
+
+
+def _init(shape, kind: str, generator: torch.Generator, device) -> torch.Tensor:
+    """The JAX schema's init kinds (``src/repro/models/schema.py``): ``he``
+    and ``lecun`` are normals scaled by the fan-in (``shape[-2]``, or
+    ``shape[-1]`` for a vector), ``embed`` a normal × 0.02."""
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = {"he": math.sqrt(2.0 / fan_in), "lecun": math.sqrt(1.0 / fan_in), "embed": 0.02}[kind]
+    t = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return t.mul_(std)
+
+
+# ------------------------------------------------------------ embedding bag
+def embedding_bag(
+    tables: torch.Tensor,    # (F, V, d)
+    ids: torch.Tensor,       # (B, F, bag) int
+    bag_mask: torch.Tensor,  # (B, F, bag) bool
+    *,
+    mode: str = "mean",
+) -> torch.Tensor:
+    """Fixed-bag EmbeddingBag: gather + masked reduce → (B, F, d)."""
+    field = torch.arange(tables.shape[0], device=ids.device)[None, :, None]
+    emb = tables[field, ids.long()]  # (B, F, bag, d)
+    w = bag_mask[..., None].to(emb.dtype)
+    s = torch.sum(emb * w, dim=2)
+    if mode == "sum":
+        return s
+    return s / torch.clamp(torch.sum(w, dim=2), min=1.0)
+
+
+def embedding_bag_ragged(
+    table: torch.Tensor,    # (V, d)
+    ids: torch.Tensor,      # (nnz,) int
+    bag_ids: torch.Tensor,  # (nnz,) int in [0, n_bags): the output row of each id
+    n_bags: int,
+    *,
+    mode: str = "sum",
+) -> torch.Tensor:
+    """Ragged EmbeddingBag (gather + segment sum): bag lengths vary freely."""
+    g = table[ids.long()]
+    seg = bag_ids.long()
+    s = torch.zeros((n_bags, table.shape[1]), dtype=table.dtype, device=table.device)
+    s.index_add_(0, seg, g)
+    if mode == "sum":
+        return s
+    cnt = torch.zeros(n_bags, dtype=table.dtype, device=table.device)
+    cnt.index_add_(0, seg, torch.ones_like(g[:, 0]))
+    return s / torch.clamp(cnt[:, None], min=1.0)
+
+
+# ------------------------------------------------------------------- model
+class XDeepFM(nn.Module):
+    """xDeepFM for serving, with the JAX package's parameters.
+
+    ``device=None`` means the card (it raises without one; pass
+    ``device="cpu"`` for the plain versions on the CPU). ``kernels``
+    (``"auto"`` | ``"torch"`` | ``"cuda"`` | a `Kernels`) resolves as in
+    `repro_torch.core.backend.resolve_kernels`. Parameters are drawn from
+    ``generator`` (a `torch.Generator` on ``device``; default: seed 0) with
+    the JAX schema's init kinds — the same distributions, other numbers.
+    """
+
+    def __init__(
+        self,
+        cfg: RecSysConfig,
+        *,
+        generator: torch.Generator | None = None,
+        device=None,
+        kernels: "str | Kernels" = "auto",
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self.cfg = cfg
+        self.kernels = resolve_kernels(kernels, dev)
+        self.cin = nn.ParameterDict()
+        self.dnn = nn.ParameterDict()
+        for name, (shape, kind) in recsys_schema(cfg).items():
+            p = nn.Parameter(_init(shape, kind, generator, dev), requires_grad=False)
+            group, _, leaf = name.rpartition(".")
+            if group:
+                getattr(self, group)[leaf] = p
+            else:
+                self.register_parameter(name, p)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tables.device
+
+    def set_kernels(self, kernels: "str | Kernels") -> None:
+        self.kernels = resolve_kernels(kernels, self.device)
+
+    def cin_maps(self, x0: torch.Tensor) -> list[torch.Tensor]:
+        """The Compressed Interaction Network on ``x0 (B, m, d)``: each
+        layer's feature maps ``(B, H_k, d)``, one ``Kernels.cin_layer``
+        each."""
+        xk, maps = x0, []
+        for i in range(len(self.cfg.cin_layers)):
+            xk = self.kernels.cin_layer(xk, x0, self.cin[f"w{i}"])
+            maps.append(xk)
+        return maps
+
+    def forward(self, ids: torch.Tensor, bag_mask: torch.Tensor) -> torch.Tensor:
+        """CTR logit ``(B,)`` of ``ids (B, F, bag)`` under ``bag_mask``."""
+        emb = embedding_bag(self.tables, ids, bag_mask)  # (B, F, d)
+        field = torch.arange(self.cfg.n_sparse, device=ids.device)[None, :, None]
+        lin_w = self.linear[field, ids.long()]  # (B, F, bag) first-order term
+        lin = torch.sum(lin_w * bag_mask.to(lin_w.dtype), dim=(1, 2))
+        cin_feat = torch.cat([x.sum(dim=-1) for x in self.cin_maps(emb)], dim=-1)
+        cin_logit = (cin_feat @ self.cin_out)[:, 0]
+        h = emb.reshape(emb.shape[0], -1)
+        n_dnn = len(self.cfg.mlp_layers) + 1
+        for i in range(n_dnn):
+            h = h @ self.dnn[f"w{i}"] + self.dnn[f"b{i}"]
+            if i < n_dnn - 1:
+                h = torch.relu(h)
+        return lin + cin_logit + h[:, 0] + self.bias
+
+    def retrieval_score(
+        self, ids: torch.Tensor, bag_mask: torch.Tensor, cand_ids: torch.Tensor
+    ) -> torch.Tensor:
+        """Scores ``(Nc,)`` of one query ``ids (1, F, bag)`` against
+        ``cand_ids (Nc,)`` of field 0's table, one batched product."""
+        emb = embedding_bag(self.tables, ids, bag_mask)          # (1, F, d)
+        user = emb.reshape(1, -1) @ self.user_proj               # (1, d)
+        items = self.tables[0][cand_ids.long()] @ self.item_proj  # (Nc, d)
+        return items @ user[0]
+
+
+def params_from_jax(
+    cfg: RecSysConfig, params: dict, *, device=None, kernels: "str | Kernels" = "auto"
+) -> XDeepFM:
+    """An `XDeepFM` holding the JAX package's parameters: ``params`` is the
+    nested dict that ``repro.models.recsys.init`` returns, as numpy arrays."""
+    model = XDeepFM(cfg, device=device, kernels=kernels)
+    n_leaves = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            node = params
+            for part in name.split("."):
+                node = node[part]
+            arr = np.array(node, dtype=np.float32)  # a copy: the input may be read-only
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(arr))
+            n_leaves += 1
+    given = _count_leaves(params)
+    if given != n_leaves:
+        raise ValueError(f"params has {given} arrays, the schema {n_leaves}")
+    return model
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1

@@ -110,12 +110,73 @@ def test_hash_join_probe(dev, cap_a, cap_b, nk, dup):
     ), dict(dup_cap=dup))
 
 
+@pytest.mark.parametrize("W", [1, 7, 117962])
+def test_bitset_unpack(dev, W):
+    rng = np.random.default_rng(W)
+    words = rng.integers(0, 2**32, W, dtype=np.uint32)
+    words[:1] = 0xFFFFFFFF
+    same("bitset_unpack", (on(dev, words),))
+
+
+@pytest.mark.parametrize("E", [1, 997, 1 << 20])
+def test_candidate_filter(dev, E):
+    rng = np.random.default_rng(E)
+    W = 37
+    dst = rng.integers(-50, W * 32 + 50, E).astype(np.int32)
+    dst[:1] = 2**31 - 1
+    same("candidate_filter", (on(dev, rng.integers(0, 2**32, W, dtype=np.uint32)), on(dev, dst),
+                              on(dev, rng.integers(0, 3, E).astype(np.int32)),
+                              on(dev, rng.random(E) < 0.8), 2))
+
+
+@pytest.mark.parametrize("B,H,m,d,Hp", [(3, 5, 4, 6, 7), (512, 39, 39, 10, 200),
+                                        (64, 200, 39, 10, 200), (5, 3, 70, 1, 130)])
+def test_cin_layer(dev, B, H, m, d, Hp):
+    """fp32 FMA in another order over up to H·m terms: held to
+    ``max|kernel - plain| <= 1e-4 · max|plain|`` with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(B + H)
+    args = (on(dev, rng.normal(size=(B, H, d)).astype(np.float32)),
+            on(dev, rng.normal(size=(B, m, d)).astype(np.float32)),
+            on(dev, rng.normal(size=(H * m, Hp)).astype(np.float32)))
+    before = cuda.launch_counts()["cin_layer"]
+    got = get_kernels("cuda").cin_layer(*args)
+    want = get_kernels("torch").cin_layer(*args)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["cin_layer"] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_xdeepfm_on_card_matches_the_cpu(dev):
+    from repro_torch.configs import xdeepfm
+    from repro_torch.data.pipeline import recsys_batch
+    from repro_torch.models.recsys import XDeepFM
+    from repro_torch.train.step import make_serve_fns
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = xdeepfm.smoke()
+    gpu = XDeepFM(cfg, device=dev)
+    cpu = XDeepFM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    assert gpu.kernels.name == "cuda" and cpu.kernels.name == "torch"
+    batch = recsys_batch(cfg, 300, seed=0, step=0)
+    got = make_serve_fns(cfg, gpu)["score"](batch["ids"], batch["bag_mask"]).cpu()
+    want = make_serve_fns(cfg, cpu)["score"](batch["ids"], batch["bag_mask"])
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     words = torch.zeros(8, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError, match="int32"):
         get_kernels("cuda").bitset_lookup(words, torch.zeros(4, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="whole number of words"):
         get_kernels("cuda").bitset_pack(torch.zeros(33, dtype=torch.bool, device=dev))
+    x = torch.zeros(2, 3, 4, device=dev)
+    with pytest.raises(ValueError, match="H·m"):
+        get_kernels("cuda").cin_layer(x, x, torch.zeros(6, 5, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        get_kernels("cuda").cin_layer(x.double(), x, torch.zeros(9, 5, device=dev))
 
 
 def test_session_rows_equal_on_cpu_and_card(dev):

@@ -38,6 +38,10 @@ def test_no_jax_or_reference_import(path):
 def test_the_port_has_its_modules():
     names = {str(f.relative_to(ROOT)) for f in FILES}
     for mod in ("api/session.py", "core/engine.py", "core/match.py", "core/join.py",
-                "kernels/cuda.py", "runtime/resilience.py"):
+                "kernels/cuda.py", "runtime/resilience.py", "kernels/cin/cin.py",
+                "kernels/cin/ref.py", "configs/base.py", "configs/xdeepfm.py",
+                "models/recsys.py", "data/pipeline.py", "train/step.py"):
         assert f"src/repro_torch/{mod}" in names
+    for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists()
     assert (ROOT / "chip_smoke.py").exists()

@@ -182,6 +182,83 @@ def test_hash_join_probe(case):
         assert hp.numpy().sum() == 6 and ip.numpy()[0, 0] == 1
 
 
+UNPACK_CASES = {
+    "W1": lambda rng: rng.integers(0, 2**32, 1, dtype=np.uint32),
+    "W37-non-pow2": lambda rng: rng.integers(0, 2**32, 37, dtype=np.uint32),
+    "W64-pow2": lambda rng: rng.integers(0, 2**32, 64, dtype=np.uint32),
+    "all-false": lambda rng: np.zeros(13, np.uint32),
+    "all-true": lambda rng: np.full(13, 0xFFFFFFFF, np.uint32),
+}
+
+
+@pytest.mark.parametrize("kern", [PORT, CUDA], ids=["torch", "cuda-wrapper"])
+@pytest.mark.parametrize("case", sorted(UNPACK_CASES))
+def test_bitset_unpack(kern, case):
+    words = UNPACK_CASES[case](np.random.default_rng(6))
+    same(kern.bitset_unpack(t(words)), JNP.bitset_unpack(jnp.asarray(words)))
+
+
+def _filter_inputs(rng, W, E, fill=None):
+    n_bits = W * 32
+    words = (rng.integers(0, 2**32, W, dtype=np.uint32) if fill is None
+             else np.full(W, fill, np.uint32))
+    dst = rng.integers(-40, n_bits + 40, E).astype(np.int32)
+    dst[:6] = [-1, n_bits, n_bits - 1, 0, -(2**31), 2**31 - 1]
+    labs = rng.integers(0, 3, E).astype(np.int32)
+    labs[:6] = 1
+    rok = rng.random(E) < 0.8
+    rok[:6] = True
+    return words, dst, labs, rok
+
+
+FILTER_CASES = {
+    "W37-E997-prime": lambda rng: _filter_inputs(rng, 37, 997),
+    "W64-E1024-pow2": lambda rng: _filter_inputs(rng, 64, 1024),
+    "all-false-words": lambda rng: _filter_inputs(rng, 9, 211, fill=0),
+    "all-true-words": lambda rng: _filter_inputs(rng, 9, 211, fill=0xFFFFFFFF),
+}
+
+
+@pytest.mark.parametrize("kern", [PORT, CUDA], ids=["torch", "cuda-wrapper"])
+@pytest.mark.parametrize("case", sorted(FILTER_CASES))
+def test_candidate_filter(kern, case):
+    words, dst, labs, rok = FILTER_CASES[case](np.random.default_rng(7))
+    got = kern.candidate_filter(t(words), t(dst), t(labs), t(rok), 1)
+    same(got, JNP.candidate_filter(jnp.asarray(words), jnp.asarray(dst), jnp.asarray(labs),
+                                   jnp.asarray(rok), 1))
+    oor = (dst < 0) | (dst >= words.shape[0] * 32)
+    assert not got.numpy()[oor].any()  # an id outside the bitset is no member
+    if case == "all-true-words":
+        np.testing.assert_array_equal(got.numpy(), rok & (labs == 1) & ~oor)
+
+
+def test_op_contracts_are_the_references():
+    from repro.core.backend import OP_CONTRACTS as JAX_CONTRACTS
+    from repro_torch.core.backend import OP_CONTRACTS
+
+    want = {c.op: tuple("int32" if d == "uint32" else d for d in c.out_dtypes)
+            for c in JAX_CONTRACTS}
+    got = {c.op: tuple(str(d).removeprefix("torch.") for d in c.out_dtypes)
+           for c in OP_CONTRACTS}
+    assert got == want
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_every_op_returns_its_contract_dtypes(backend):
+    from repro_torch.core.backend import CudaKernels, op_contracts
+
+    kern = port_kernels(backend)
+    for c in op_contracts(backend):
+        if backend == "cuda":  # every op goes to a kernel wrapper
+            assert c.op in vars(CudaKernels), c.op
+        args, kw = c.make_args(torch.device("cpu"))
+        out = getattr(kern, c.op)(*args, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        assert tuple(o.dtype for o in outs) == c.out_dtypes, c.op
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        op_contracts("jnp")
+
+
 def test_numpy_helpers_match_reference():
     from repro.kernels.bitset import ref as jref
     from repro_torch.kernels.bitset import ref as tref
