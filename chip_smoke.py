@@ -17,7 +17,8 @@ result lines are printed only when every phase passed):
      end. The launch counts are zeroed just before and read just after;
      each of the matcher's five kernels must be > 0. Every returned row is
      checked to be a label-preserving injective embedding of its query in
-     the graph;
+     the graph. Each query then runs three more times, uncounted, for its
+     median wall and stage times past first-call warm-up;
   4. the same queries and stream with ``kernels="torch"`` (the plain
      PyTorch versions) on the card must give identical rows; the inputs of
      each op's largest call there are kept for phase 5, and every
@@ -30,7 +31,10 @@ result lines are printed only when every phase passed):
      ``candidate_filter`` on every (``stwig_expand`` call, child) of it, with
      the counts zeroed before and read after (each > 0): bit-exact against
      the plain versions, ``unpack(build(ids))`` equal to the built ids' bits,
-     and the filter's per-root sums equal to ``stwig_expand``'s exact counts;
+     and the filter's per-root sums equal to ``stwig_expand``'s exact counts.
+     The filter's kernel row is timed on those edges made dense (every edge
+     ``root_ok`` with the child's label, random binding words), where its
+     whole byte bound is needed; its sparse main-path input is timed too;
   7. a 2,000-node graph gives the same rows on the CPU and on the card;
   8. recsys — xDeepFM at its published widths (39 fields, 1,000,000 rows a
      field, embed 10, CIN 200-200-200, MLP 400-400, bag 4; random weights
@@ -39,8 +43,9 @@ result lines are printed only when every phase passed):
      ``"retrieve"`` at retrieval_cand (1 query × 1,000,000 candidates), with
      the counts zeroed before and read after (``cin_layer`` 3 per forward).
      TF32 is off. Each CIN layer at serve_p99 and the logits are held to the
-     plain versions within ``1e-4 · max|plain|``; at serve_bulk the first
-     4,096 rows are; the smoke config gives the same logits on card and CPU.
+     plain versions within ``1e-4 · max|plain|``; at serve_bulk each layer's
+     and the logits' first 4,096 rows are; the smoke config gives the same
+     logits on card and CPU.
 
 Before the last line it prints the eight kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -181,6 +186,27 @@ def run_queries(session, queries, stream_q):
     return out, srows, report
 
 
+def repeat_times(session, queries, reps: int = 3) -> list[str]:
+    """Each query run ``reps`` more times after the counted run: the median
+    wall ms and the median of each stage, past first-call warm-up."""
+    report = []
+    for i, q in enumerate(queries):
+        compiled = session.compile(q, max_matches=1024)
+        wall, stages = [], {}
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = compiled.run(adaptive=False)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            for k, v in res.stats.stage_times.items():
+                stages.setdefault(k, []).append(v * 1e3)
+        st = {k: round(statistics.median(v), 3) for k, v in stages.items()}
+        report.append(f"q{i} median of {reps} repeats: ms={statistics.median(wall):.3f} "
+                      f"(runs {[round(x, 3) for x in wall]}) stage_ms={st}")
+    return report
+
+
 # ---------------------------------------------------------------- phase 4
 def recording_kernels():
     """The plain PyTorch backend, keeping the inputs of each op's largest
@@ -306,8 +332,17 @@ def work(op, args, kw) -> tuple[int, float]:
         (words,) = args
         return nbytes(words) + 32 * words.numel(), 3.0 * 32 * words.numel()
     if op == "candidate_filter":
-        words, dst, lab, rok, _ = args
-        return nbytes(words, dst, lab, rok) + dst.numel(), 9.0 * dst.numel()
+        # `root_ok ∧ label == l ∧ bit(dst)` short-circuits: every edge reads
+        # root_ok and writes its bool, the root_ok edges read their label,
+        # the label matches their dst id and the bitset words it lands in
+        words, dst, lab, rok, label = args
+        ok = rok.bool()
+        match = ok & (lab == label)
+        w_idx = dst[match].long() >> 5
+        n_words = torch.unique(w_idx[(w_idx >= 0) & (w_idx < words.numel())]).numel()
+        n_rok, n_match = int(ok.sum()), int(match.sum())
+        return (2 * dst.numel() + 4 * n_rok + 4 * n_match + 4 * n_words,
+                dst.numel() + 2.0 * n_rok + 6.0 * n_match)
     if op == "cin_layer":
         xk, x0, w = args
         B, H, d = xk.shape
@@ -450,29 +485,46 @@ def phase_ops(recorder) -> list[dict]:
         f"words, {k} with random words on its largest call); "
         f"launches {({op: counts[op] for op in ('bitset_unpack', 'candidate_filter')})}")
 
+    # the filter's main-path input is sparse (root_ok holds on ~1 edge in
+    # 418), so it reads little more than root_ok. The kernel row is timed on
+    # the same edges made dense: every edge a root_ok edge of the child's
+    # label, so every byte of the bound is needed
+    label = kw["child_labels"][0]
+    dense = (words_r[0], dst, torch.full_like(lab, label), torch.ones_like(rok), label)
+    if not torch.equal(cuda_k.candidate_filter(*dense), plain.candidate_filter(*dense)):
+        fail("candidate_filter differs from its plain version (dense root_ok and labels)")
     rows = []
     _, words = max(recorder.builds, key=lambda c: c[0][2])
-    for op, args in (("bitset_unpack", (words,)),
-                     ("candidate_filter", (words_k[0], dst, lab, rok, kw["child_labels"][0]))):
+    for op, args, what in (
+        ("candidate_filter", (words_k[0], dst, lab, rok, label), "main-path input"),
+        ("bitset_unpack", (words,), "main-path input"),
+        ("candidate_filter", dense, "dense input"),
+    ):
         ms = time_ms(lambda: getattr(cuda_k, op)(*args))
         plain_ms = time_ms(lambda: getattr(plain, op)(*args))
-        rows.append(kernel_row(op, args, {}, counts[op], 0, ms, plain_ms))
+        row = kernel_row(op, args, {}, counts[op], 0, ms, plain_ms)
         shapes = [tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
-        log(f"[ops] {op} on {shapes}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}), launches {counts[op]}")
+        log(f"[ops] {op} on {what} {shapes}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{work(op, args, {})[0] / 1e6:.1f} MB), launches {counts[op]}")
+        if what != "main-path input" or op == "bitset_unpack":
+            rows.append(row)
     return rows
 
 
 # ---------------------------------------------------------------- phase 8
 def rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     """max|got - want| / max|want|; fails above 1e-4 (fp32, TF32 off, sums
-    of up to 7,800 products in another order) or on a non-finite value."""
+    of up to 7,800 products in another order), on a non-finite value, or
+    when ``want`` is all zeros."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         fail(f"{what}: non-finite values")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
+    if scale == 0:
+        fail(f"{what}: the plain version is all zeros, so the check would hold nothing")
     if err > 1e-4 * scale:
         fail(f"{what}: max|kernel - plain| {err:.3e} > 1e-4 · max|plain| ({scale:.3e})")
     return err
@@ -589,7 +641,7 @@ def phase_recsys(dev) -> list[dict]:
         model.set_kernels("cuda")
         fwd_bulk = time_ms(lambda: fns["score"](*bulk), reps=3)
         x0 = embedding_bag(model.tables, *bulk)
-        xk, bulk_cin_ms, bulk_layers, bulk_bounds = x0, 0.0, [], []
+        xk, bulk_cin_ms, bulk_layers, bulk_bounds, bulk_errs = x0, 0.0, [], [], []
         for i in range(n_cin):
             args = (xk, x0, model.cin[f"w{i}"])
             ms = time_ms(lambda: cuda_k.cin_layer(*args), reps=3)
@@ -597,8 +649,15 @@ def phase_recsys(dev) -> list[dict]:
             bulk_cin_ms += ms
             ops = work("cin_layer", args, {})[1]
             bulk_bounds.append((ops / CUDA_CORE_OPS_PER_S * 1e3, ops / TF32_OPS_PER_S * 1e3))
-            xk = cuda_k.cin_layer(*args)
-        del x0, xk
+            out = cuda_k.cin_layer(*args)
+            # each layer at the bulk N = B·d, held on its first 4,096 rows
+            # (plain at full bulk would need the 82 GB z)
+            bulk_errs.append(rel_err(out[:4096], plain.cin_layer(xk[:4096], x0[:4096], args[2]),
+                                     f"CIN layer {i} at serve_bulk, first 4,096 rows"))
+            xk = out
+        del x0, xk, out
+        log(f"[recsys] each CIN layer at serve_bulk within 1e-4 · max|plain| on its first "
+            f"4,096 rows: max abs err {[f'{e:.3e}' for e in bulk_errs]}")
         retrieve_ms = time_ms(lambda: fns["retrieve"](*query, cand))
     log(f"[recsys] serve_p99 forward {fwd_p99:.4f} ms (kernels='torch': {fwd_p99_plain:.4f} ms), "
         f"CIN kernels {p99_cin_ms:.4f} ms = {100 * p99_cin_ms / fwd_p99:.1f}% of it")
@@ -657,6 +716,8 @@ def main() -> None:
     embedding_check(g, edge_keys, queries[0], np.concatenate(stream_cuda) if stream_cuda
                     else np.zeros((0, queries[0].n_nodes), np.int64))
     log(f"[main] every row of {len(queries)} queries + stream is a valid embedding")
+    for line in repeat_times(session, queries):
+        log(f"[main] {line}")
 
     # ---- phase 4: the plain versions on the card, same rows ----------------
     recorder = recording_kernels()

@@ -218,8 +218,10 @@ def get_kernels(name: str) -> Kernels:
 
 
 def op_contracts(name: str) -> tuple[OpContract, ...]:
-    """The contracts of backend ``name``: every registered backend implements
-    all of `OP_CONTRACTS`."""
+    """The contracts of backend ``name``. It mirrors the JAX package's
+    `op_contracts`, where a backend may register contracts of its own; no
+    backend of the port does, so every registered name gets `OP_CONTRACTS`
+    and the argument only checks that the name is registered."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown kernel backend {name!r}; registered: {tuple(_REGISTRY)}")
     return OP_CONTRACTS
