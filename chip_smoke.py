@@ -47,7 +47,28 @@ result lines are printed only when every phase passed):
      and the logits' first 4,096 rows are; the smoke config gives the same
      logits on card and CPU.
 
-Before the last line it prints the eight kernels as one JSON object, then
+  9. gnn — an ogbn-products-shaped R-MAT (2,449,029 nodes, 30,929,570
+     undirected draws symmetrized, seed 0; no cut of scale) served through
+     ``make_serve_fns(cfg, model)["infer"]``: GIN-TU at its published widths
+     (5 layers, d_hidden 64, learnable ε, 16 classes, d_in 100) on
+     ``gnn_full_batch``, then GatedGCN (16 layers, d_hidden 70, d_edge 8,
+     16 classes, d_in 602) on a ``minibatch_lg`` batch (``NeighborSampler``
+     on the same graph, fanouts (15, 10), 1,024 seeds). Random weights from
+     seed 0. The counts are zeroed before and read after each forward:
+     ``segment_mp`` 5 per GIN forward and 32 per GatedGCN forward. TF32 is
+     off. Logits and each first-layer aggregation are held to
+     ``kernels="torch"`` within ``1e-4 · max|plain|``; the four kinds'
+     smoke configs give the same outputs on card and CPU;
+ 10. probe — the join probe's two kernels (``extras/join_probe/ops.py``
+     ``lower_bound``, ``window``) on the inputs of the query path's largest
+     ``hash_join_probe`` call, counted (each > 0), bit-exact against their
+     plain versions there and on adversarial cases (keys ≥ 2^31, a
+     power-of-two build side whose duplicate run fills the window,
+     ``dup_cap > capA``), and in agreement with ``hash_join_probe``: the
+     window's hits with both rows valid and equal key columns are its
+     ``hit``, and the ``idx`` arrays are equal.
+
+Before the last line it prints the eleven kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
 ``{"ok": true, "device": {...}}``. It imports neither ``jax`` nor the JAX
 package.
@@ -73,6 +94,9 @@ TF32_OPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate (data sheet)
 MATCHER_KERNELS = ("stwig_expand", "hash_join_probe", "bitset_lookup", "bitset_build",
                    "bitset_pack")
 PATENTS = dict(n_nodes=3_774_768, n_edges=16_522_438, n_labels=418, seed=0)
+# ogbn-products' counts (GNN_SHAPES["ogb_products"]): the edge count is
+# directed, so half of it is drawn and symmetrized; 47 labels (its classes)
+PRODUCTS = dict(n_nodes=2_449_029, n_edges=61_859_140 // 2, n_labels=47, seed=0)
 
 
 def log(msg: str) -> None:
@@ -97,6 +121,46 @@ def time_ms(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_profile(fn, reps: int = 3):
+    """One `torch.profiler` trace of ``reps`` calls of ``fn`` after a
+    warm-up: (device ms a call, the device's busy share of the span from
+    its first kernel's start to its last kernel's end, the six kernels
+    with the most device time as (name, ms a call)); or, when the trace
+    holds no device kernel or cannot be read, why not. It is a measurement
+    only: nothing is checked by it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    try:
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not kernels:
+            return "the trace held no device kernel"
+        busy = sum(e.time_range.elapsed_us() for e in kernels)
+        span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    except AttributeError as exc:  # the trace's event API differs across PyTorch versions
+        return f"the trace could not be read: {exc}"
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (busy / reps / 1e3, busy / max(span, 1e-9),
+            [(name[:70], us / reps / 1e3) for name, us in top])
+
+
+def profile_line(prof) -> str:
+    if isinstance(prof, str):
+        return f"device time not measured ({prof})"
+    ms, busy, top = prof
+    return (f"device time {ms:.4f} ms a call, busy {100 * busy:.1f}% of its span; top kernels "
+            f"{[(n, round(t, 4)) for n, t in top]}")
 
 
 def nbytes(*ts) -> int:
@@ -349,6 +413,16 @@ def work(op, args, kw) -> tuple[int, float]:
         out = 4 * B * w.shape[1] * d
         # z = xk ⊗ x0 (one multiply per z element) and the FMA contraction
         return nbytes(xk, x0, w) + out, B * d * H * x0.shape[1] * (1.0 + 2.0 * w.shape[1])
+    if op == "segment_mp":
+        msg, dst, n = args
+        return nbytes(msg, dst) + 4 * n * msg.shape[1], float(msg.numel())
+    if op == "probe_lower_bound":
+        ka, kb = args
+        return nbytes(ka, kb) + 4 * kb.numel(), 4.0 * max(1, ka.numel().bit_length()) * kb.numel()
+    if op == "probe_window":
+        ka, kb, lo = args
+        dup = kw["dup_cap"]
+        return nbytes(ka, kb, lo) + 5 * kb.numel() * dup, 4.0 * kb.numel() * dup
     raise KeyError(op)
 
 
@@ -376,6 +450,12 @@ KERNEL_INFO = {
     "candidate_filter": ("src/repro_torch/csrc/bitset.cu",
                          "src/repro/kernels/bitset/bitset.py:122"),
     "cin_layer": ("src/repro_torch/csrc/cin.cu", "src/repro/kernels/cin/cin.py:28"),
+    "segment_mp": ("src/repro_torch/csrc/segment_mp.cu",
+                   "src/repro/extras/segment_mp/segment_mp.py:43"),
+    "probe_lower_bound": ("src/repro_torch/csrc/join_probe.cu",
+                          "src/repro/extras/join_probe/join_probe.py:38"),
+    "probe_window": ("src/repro_torch/csrc/join_probe.cu",
+                     "src/repro/extras/join_probe/join_probe.py:80"),
 }
 
 
@@ -669,6 +749,245 @@ def phase_recsys(dev) -> list[dict]:
     return [max(layer_rows, key=lambda r: r["bound_ms"])]
 
 
+# ---------------------------------------------------------------- phase 9
+def recording_segment_mp(n_keep: int):
+    """The CUDA backend, keeping a copy of the inputs of its first
+    ``n_keep`` ``segment_mp`` calls (a model may change its messages in
+    place after the call)."""
+    from repro_torch.core.backend import CudaKernels
+
+    class Recording(CudaKernels):
+        def __init__(self):
+            self.args = []
+
+        def segment_mp(self, messages, dst_sorted, n_nodes):
+            if len(self.args) < n_keep:
+                self.args.append((messages.clone(), dst_sorted, n_nodes))
+            return super().segment_mp(messages, dst_sorted, n_nodes)
+
+    return Recording()
+
+
+def phase_gnn(dev) -> list[dict]:
+    import dataclasses
+
+    from repro_torch.configs import egnn, gatedgcn, gin_tu, meshgraphnet
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.core.backend import get_kernels
+    from repro_torch.data.pipeline import gnn_full_batch, gnn_minibatch
+    from repro_torch.graphstore import generators
+    from repro_torch.graphstore.sampler import NeighborSampler
+    from repro_torch.kernels import cuda
+    from repro_torch.models.gnn import GNN, batch_to
+    from repro_torch.train.step import make_serve_fns
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_k, plain = get_kernels("cuda"), get_kernels("torch")
+
+    # ---- the smoke configs: the same outputs on the card and on the CPU ----
+    small = generators.rmat(2000, 8000, 4, seed=0)
+    smoke_errs = {}
+    for mod in (gin_tu, gatedgcn, egnn, meshgraphnet):
+        cfg = mod.smoke()
+        m_gpu = GNN(cfg, device=dev)
+        m_cpu = GNN(cfg, device="cpu")
+        m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+        batches = [gnn_full_batch(cfg, small, n_classes=cfg.n_classes, seed=0)]
+        if mod is gatedgcn:
+            batches.append(gnn_minibatch(cfg, small, NeighborSampler(small, (5, 3), seed=0),
+                                         batch_nodes=32, n_classes=cfg.n_classes, seed=0,
+                                         step=0))
+        f_gpu, f_cpu = make_serve_fns(cfg, m_gpu)["infer"], make_serve_fns(cfg, m_cpu)["infer"]
+        for i, b in enumerate(batches):
+            smoke_errs[f"{cfg.name}/{i}"] = rel_err(f_gpu(b).cpu(), f_cpu(b),
+                                                    f"{cfg.name} smoke outputs, card vs CPU")
+    log(f"[gnn] smoke configs: outputs agree on card and CPU (max abs err "
+        f"{ {k: f'{v:.3e}' for k, v in smoke_errs.items()} })")
+
+    # ---- set-up: the graph, the batches, the models ------------------------
+    t0 = time.perf_counter()
+    g = generators.rmat(PRODUCTS["n_nodes"], PRODUCTS["n_edges"], PRODUCTS["n_labels"],
+                        seed=PRODUCTS["seed"])
+    log(f"[gnn] ogbn-products-shaped R-MAT: {g.n_nodes} nodes, {g.n_edges} directed edges "
+        f"(of at most {2 * PRODUCTS['n_edges']}: self-loops and duplicates dropped), max degree "
+        f"{g.max_degree()}, built in {time.perf_counter() - t0:.2f} s")
+    gin_cfg = dataclasses.replace(gin_tu.CONFIG, d_in=GNN_SHAPES["ogb_products"]["d"])
+    gg_cfg = dataclasses.replace(gatedgcn.CONFIG, d_in=GNN_SHAPES["minibatch_lg"]["d"])
+    t0 = time.perf_counter()
+    full = batch_to(gnn_full_batch(gin_cfg, g, n_classes=gin_cfg.n_classes, seed=0), dev)
+    t_full = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g, (15, 10), seed=0)
+    mb_host = gnn_minibatch(gg_cfg, g, sampler, batch_nodes=1024, n_classes=gg_cfg.n_classes,
+                            seed=0, step=0)
+    mb = batch_to(mb_host, dev)
+    t_mb = time.perf_counter() - t0
+    node_cap, edge_cap = sampler.capacities(1024)
+    if (node_cap, edge_cap) != (169_984, 168_960) or mb.edge_src.shape[0] != edge_cap:
+        fail(f"minibatch_lg capacities {(node_cap, edge_cap)}, not (169984, 168960)")
+    del g, sampler
+    paths = []  # name, model, serve fn, batch, segment_mp calls a layer, timing repetitions
+    for what, cfg, batch, per, reps in (("gin", gin_cfg, full, 1, 5),
+                                        ("gatedgcn", gg_cfg, mb, 2, 10)):
+        model = GNN(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        if model.kernels.name != "cuda":
+            fail(f"GNN on the card chose kernels {model.kernels.name!r}")
+        paths.append((what, model, make_serve_fns(cfg, model)["infer"], batch, per, reps))
+    torch.cuda.synchronize()
+    log(f"[gnn] gnn_full_batch ({full.node_feat.shape[0]} nodes x {gin_cfg.d_in}, "
+        f"{full.edge_src.shape[0]} edges) on the card in {t_full:.2f} s; minibatch_lg "
+        f"({mb_host.node_feat.shape[0]} node slots, {int(mb_host.node_mask.sum())} real; "
+        f"{edge_cap} edge slots, {int(mb_host.edge_mask.sum())} real) sampled in {t_mb:.2f} s")
+
+    # ---- the path: GIN full-graph inference, GatedGCN minibatch, counted ---
+    torch.cuda.reset_peak_memory_stats()
+    launches, outs = {}, {}
+    for what, model, fn, batch, per, _ in paths:
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        outs[what] = fn(batch)
+        torch.cuda.synchronize()
+        launches[what] = cuda.launch_counts()["segment_mp"]
+        if launches[what] != per * model.cfg.n_layers:
+            fail(f"{what}: segment_mp launched {launches[what]} times in one forward of "
+                 f"{model.cfg.n_layers} layers ({per} a layer)")
+        shape = (batch.node_feat.shape[0], model.cfg.n_classes)
+        if outs[what].shape != shape or not torch.isfinite(outs[what]).all():
+            fail(f"{what}: logits of shape {tuple(outs[what].shape)} or non-finite values")
+    log(f"[gnn] path run: GIN-TU infer on the full graph, GatedGCN infer on minibatch_lg; "
+        f"segment_mp launches {launches} (1 a GIN layer, 2 a GatedGCN layer); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    # ---- each path against plain: logits, first-layer aggregations, times --
+    rows = []
+    for what, model, fn, batch, per, reps in paths:
+        model.set_kernels("torch")
+        want = fn(batch)
+        errs = {"logits": (rel_err(outs[what], want, f"{what} logits"), want)}
+        fwd_plain = time_ms(lambda: fn(batch), reps=reps)
+        model.set_kernels(recording_segment_mp(per))
+        fn(batch)
+        calls = model.kernels.args  # the first layer's aggregations
+        model.set_kernels("cuda")
+        for i, args in enumerate(calls):
+            want = plain.segment_mp(*args)
+            errs[f"layer-0 aggregation {i}"] = (
+                rel_err(cuda_k.segment_mp(*args), want, f"{what} first-layer aggregation {i}"),
+                want)
+        txt = {k: f"{e:.3e} of max|plain| {w.abs().max().item():.3e}" for k, (e, w) in errs.items()}
+        log(f"[gnn] {what}: within 1e-4 · max|plain| of kernels='torch' (max abs err {txt})")
+        fwd = time_ms(lambda: fn(batch), reps=reps)
+        sort_ms = time_ms(lambda: torch.sort(batch.edge_dst, stable=True), reps=reps)
+        log(f"[gnn] {what} forward {fwd:.4f} ms (kernels='torch': {fwd_plain:.4f} ms); edge "
+            f"sort {sort_ms:.4f} ms; forward {profile_line(device_profile(lambda: fn(batch)))}")
+        # the kernel on the first layer's (message) aggregation
+        args = calls[-1]
+        msg, dst, n = args
+        dst_l = dst.long()
+        ms = time_ms(lambda: cuda_k.segment_mp(*args))
+        plain_ms = time_ms(lambda: plain.segment_mp(*args))
+        lib_ms = time_ms(lambda: torch.zeros((n, msg.shape[1]), device=dev).index_add_(
+            0, dst_l, msg))
+        row = kernel_row("segment_mp", args, {}, sum(launches.values()),
+                         errs[f"layer-0 aggregation {len(calls) - 1}"][0], ms, plain_ms, lib_ms)
+        b = work("segment_mp", args, {})[0]
+        log(f"[gnn] segment_mp, {what} first layer ({tuple(msg.shape)} messages -> {n} "
+            f"nodes): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {b / 1e9:.3f} GB), "
+            f"{b / ms / 1e9:.3f} TB/s; kernel alone: "
+            f"{profile_line(device_profile(lambda: cuda_k.segment_mp(*args)))}")
+        if what == "gin":  # the kernel line's row: one GIN layer at the full size
+            rows.append(row)
+        del calls, args, msg
+    del full, mb, paths, outs
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phase 10
+def probe_cases(dev):
+    """Adversarial (ka, kb, dup_cap) cases of the CPU tests, on the card."""
+    rng = np.random.default_rng(1)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.uint32).view(np.int32)).to(dev)
+
+    big = np.sort(rng.integers(0, 2**32, 64, dtype=np.uint64)).astype(np.uint32)
+    big[-4:] = 0xFFFFFFFF
+    return [
+        ("keys >= 2**31", t(big), t(np.concatenate([big[::3], [0, 0xFFFFFFFF, 2**31,
+                                                               2**31 - 1, 2**31 + 1]])), 4),
+        ("pow2 capA, full run", t([0, 5, 5, 5, 5, 5, 5, 9]), t([5, 9, 0, 4, 6, 10, 0xFFFFFFFF]), 6),
+        ("dup_cap > capA", t([3, 3, 7]), t([3, 7, 1, 8]), 5),
+    ]
+
+
+def phase_probe(dev, probe_call) -> list[dict]:
+    from repro_torch.core.backend import get_kernels
+    from repro_torch.extras.join_probe import ops
+    from repro_torch.kernels import cuda
+
+    (ka, a_keys, a_valid, kb, b_keys, b_valid), dup = probe_call[1], probe_call[2]["dup_cap"]
+    # ---- the path: lower bound then window, counted ------------------------
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    lo = ops.lower_bound(ka, kb)
+    hit, idx = ops.window(ka, kb, lo, dup_cap=dup)
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    for sym in ("probe_lower_bound", "probe_window"):
+        if counts[sym] <= 0:
+            fail(f"kernel {sym} was never launched on its path")
+    # ---- bit-exact against the plain versions ------------------------------
+    lo_p = ops.lower_bound(ka, kb, use_kernel=False)
+    err_lo = max_abs_err(lo, lo_p)
+    err_w = max_abs_err((hit, idx), ops.window(ka, kb, lo_p, dup_cap=dup, use_kernel=False))
+    for what, a, b, d in probe_cases(dev):
+        la, lb = ops.lower_bound(a, b), ops.lower_bound(a, b, use_kernel=False)
+        err_lo = max(err_lo, max_abs_err(la, lb))
+        got = ops.window(a, b, la, dup_cap=d)
+        err_w = max(err_w, max_abs_err(got, ops.window(a, b, lb, dup_cap=d, use_kernel=False)))
+        if what.startswith("pow2") and not bool(got[0][0].all()):
+            fail("probe_window missed a duplicate of a run that fills the window")
+    if err_lo or err_w:
+        fail(f"join probe kernels differ from their plain versions ({err_lo}, {err_w})")
+    # ---- agreement with the matcher's probe --------------------------------
+    h_ref, i_ref = get_kernels("cuda").hash_join_probe(ka, a_keys, a_valid, kb, b_keys, b_valid,
+                                                       dup_cap=dup)
+    verified = (hit & a_valid[idx.long()] & b_valid[:, None]
+                & (a_keys[idx.long()] == b_keys[:, None, :]).all(dim=-1))
+    if not (torch.equal(verified, h_ref) and torch.equal(idx, i_ref)):
+        fail("window hits verified by validity and key columns differ from hash_join_probe")
+    log(f"[probe] lower_bound + window on the query path's largest hash_join_probe input "
+        f"(capA {ka.numel()}, capB {kb.numel()}, dup {dup}): bit-exact against plain there and "
+        f"on {len(probe_cases(dev))} adversarial cases; verified hits ({int(h_ref.sum())}) and "
+        f"idx equal hash_join_probe's; launches "
+        f"{ {k: counts[k] for k in ('probe_lower_bound', 'probe_window')} }")
+    # ---- times ------------------------------------------------------------
+    ka64, kb64 = ka.long() & 0xFFFFFFFF, kb.long() & 0xFFFFFFFF
+    rows = []
+    for op, args, kw, fn, plain_fn, lib in (
+        ("probe_lower_bound", (ka, kb), {}, lambda: ops.lower_bound(ka, kb),
+         lambda: ops.lower_bound(ka, kb, use_kernel=False),
+         lambda: torch.searchsorted(ka64, kb64, side="left")),
+        ("probe_window", (ka, kb, lo), {"dup_cap": dup},
+         lambda: ops.window(ka, kb, lo, dup_cap=dup),
+         lambda: ops.window(ka, kb, lo, dup_cap=dup, use_kernel=False), None),
+    ):
+        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+        lib_ms = time_ms(lib) if lib is not None else None
+        row = kernel_row(op, args, kw, counts[op], 0, ms, plain_ms, lib_ms)
+        rows.append(row)
+        log(f"[probe] {op}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms (torch.searchsorted, int64)'}, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{work(op, args, kw)[0] / 1e6:.2f} MB), launches {counts[op]}; kernel alone: "
+            f"{profile_line(device_profile(fn, reps=10))}"
+            + ("" if lib is None else f"; library alone: {profile_line(device_profile(lib, 10))}"))
+    return rows
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     name, smi = phase_device()
@@ -739,6 +1058,7 @@ def main() -> None:
 
     # ---- phase 6: bitset_unpack and candidate_filter on the main path's data
     kernel_rows += phase_ops(recorder)
+    probe_call = recorder.calls["hash_join_probe"]  # phase 10's inputs
     del session, recorder
 
     # ---- phase 7: a small graph, CPU vs card -------------------------------
@@ -758,6 +1078,13 @@ def main() -> None:
 
     # ---- phase 8: xDeepFM serving at its published widths -------------------
     kernel_rows += phase_recsys(dev)
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: GNN inference on an ogbn-products-shaped graph ------------
+    kernel_rows += phase_gnn(dev)
+
+    # ---- phase 10: the join probe's two kernels on the query path's join ----
+    kernel_rows += phase_probe(dev, probe_call)
     if sorted(r["name"] for r in kernel_rows) != sorted(KERNEL_INFO):
         fail(f"the kernel line has {[r['name'] for r in kernel_rows]}, not {list(KERNEL_INFO)}")
 

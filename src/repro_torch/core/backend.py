@@ -3,9 +3,14 @@
 Every dense step that the JAX package runs as a TPU kernel — the bitset
 pack/unpack/lookup/build, the standalone candidate filter, the fused STwig
 expansion, the sort-merge join probe and the xDeepFM CIN layer — is an op
-on a `Kernels` object. The engine and `models.recsys.XDeepFM` call through
-whatever `Kernels` they were given, and the backend's name is part of
-every `ExecutableCache` key.
+on a `Kernels` object. The engine, `models.recsys.XDeepFM` and
+`models.gnn.GNN` call through whatever `Kernels` they were given, and the
+backend's name is part of every `ExecutableCache` key.
+
+The port has one op more than the JAX package's eight: ``segment_mp``, the
+GNN message aggregation, is the port's wiring of ``repro.extras.segment_mp``
+(which the JAX models reach only as ``jax.ops.segment_sum``), so that
+`models.gnn` runs it as a kernel on the card.
 
 Registered backends:
 
@@ -29,6 +34,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.extras.segment_mp import ref as _segment_ref
+from repro_torch.extras.segment_mp import segment_mp as _segment
 from repro_torch.kernels.bitset import bitset as _bitset
 from repro_torch.kernels.bitset import ref as _bitset_ref
 from repro_torch.kernels.cin import cin as _cin
@@ -97,6 +104,10 @@ OP_CONTRACTS: tuple[OpContract, ...] = (
     OpContract("cin_layer", lambda dev: ((
         _ex((2, 3, 4), _F32, dev), _ex((2, 2, 4), _F32, dev), _ex((6, 3), _F32, dev),
     ), {}), (_F32,)),
+    # the port's own op (repro.extras.segment_mp): messages, dst_sorted, n_nodes
+    OpContract("segment_mp", lambda dev: ((
+        _ex((16, 4), _F32, dev), _ex((16,), _I32, dev), 8,
+    ), {}), (_F32,)),
 )
 
 
@@ -159,6 +170,14 @@ class Kernels:
         (B, H', d)``, float32."""
         return _cin_ref.cin_layer_reference(xk, x0, w)
 
+    # ----------------------------------------------------------------- GNN
+    def segment_mp(self, messages, dst_sorted, n_nodes: int) -> torch.Tensor:
+        """GNN message aggregation: ``messages (E, d)`` float32 summed by
+        ``dst_sorted (E,)`` int32 into ``(n_nodes, d)``; ids outside
+        ``[0, n_nodes)`` are dropped. The kernel needs ``dst_sorted``
+        ascending; the plain version takes any order."""
+        return _segment_ref.segment_mp_reference(messages, dst_sorted, n_nodes)
+
     # ------------------------------------------------------------ host
     def mask_to_host(self, mask: torch.Tensor) -> np.ndarray:
         """A device bool mask as a host numpy array, moved as packed words."""
@@ -198,6 +217,9 @@ class CudaKernels(Kernels):
 
     def cin_layer(self, xk, x0, w):
         return _cin.cin_layer(xk, x0, w)
+
+    def segment_mp(self, messages, dst_sorted, n_nodes):
+        return _segment.segment_mp(messages, dst_sorted, n_nodes)
 
 
 # ------------------------------------------------------------------ registry

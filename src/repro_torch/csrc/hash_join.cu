@@ -2,8 +2,8 @@
 //
 // Replaces hash_join_probe of src/repro/kernels/hash_join/hash_join.py
 // (_probe_kernel). One thread per probe row: a lower-bound binary search of
-// its hashed key over the sorted build keys (bit_length(capA) guarded
-// steps, keys compared as unsigned 32-bit values), then a dup_cap window
+// its hashed key over the sorted build keys (probe.cuh: bit_length(capA)
+// guarded steps, keys compared as unsigned 32-bit values), then a dup_cap window
 // with hit = hash equality ∧ both rows valid ∧ exact key-column equality.
 // idx = min(lo + j, capA - 1) is written even where hit is false, as the
 // TPU kernel does.
@@ -20,6 +20,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "probe.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -33,14 +35,7 @@ __global__ void probe_kernel(const uint32_t* __restrict__ ka, const int32_t* __r
     const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (j >= cap_b) return;
     const uint32_t key = kb[j];
-    int lo = 0, hi = cap_a;
-    for (int s = 0; s < steps; ++s) {
-        if (lo < hi) {  // a converged interval must not move again
-            const int mid = (lo + hi) >> 1;
-            if (ka[mid] < key) lo = mid + 1;
-            else hi = mid;
-        }
-    }
+    const int lo = probe_lower_bound(ka, cap_a, key, steps);
     const bool bv = b_valid[j] != 0;
     const int32_t* bk = b_keys + j * nk;
     for (int w = 0; w < dup_cap; ++w) {

@@ -5,7 +5,76 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.configs.base import RecSysConfig
+from repro_torch.configs.base import GNNConfig, RecSysConfig
+from repro_torch.graphstore.csr import Graph
+from repro_torch.graphstore.sampler import NeighborSampler
+from repro_torch.models.gnn import GraphBatch
+
+
+def gnn_full_batch(
+    cfg: GNNConfig, g: Graph, *, n_classes: int, seed: int
+) -> GraphBatch:
+    """Full-graph batch straight from a graphstore Graph (host numpy)."""
+    rng = np.random.default_rng(seed)
+    N, E = g.n_nodes, g.n_edges
+    src = np.repeat(np.arange(N, dtype=np.int32), np.diff(g.indptr))
+    dst = g.indices.astype(np.int32)
+    return GraphBatch(
+        node_feat=rng.normal(size=(N, cfg.d_in)).astype(np.float32),
+        edge_src=src,
+        edge_dst=dst,
+        node_mask=np.ones(N, bool),
+        edge_mask=np.ones(E, bool),
+        edge_feat=rng.normal(size=(E, cfg.d_edge)).astype(np.float32)
+        if cfg.d_edge
+        else None,
+        node_pos=rng.normal(size=(N, 3)).astype(np.float32)
+        if cfg.kind == "egnn"
+        else None,
+        graph_id=None,
+        n_graphs=1,
+        labels=rng.normal(size=(N,)).astype(np.float32)
+        if cfg.task == "regression"
+        else rng.integers(0, n_classes, N).astype(np.int32),
+        label_mask=np.ones(N, bool),
+    )
+
+
+def gnn_minibatch(
+    cfg: GNNConfig,
+    g: Graph,
+    sampler: NeighborSampler,
+    *,
+    batch_nodes: int,
+    n_classes: int,
+    seed: int,
+    step: int,
+) -> GraphBatch:
+    """Sampled k-hop minibatch (the minibatch_lg regime), host numpy."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    seeds = rng.choice(g.n_nodes, size=batch_nodes, replace=False)
+    sub = sampler.sample(seeds)
+    N = sub.node_cap
+    feat_rng = np.random.default_rng(np.random.SeedSequence([seed, 7]))
+    # features keyed by global node id hash → consistent across batches
+    feats = feat_rng.normal(size=(1, cfg.d_in)).astype(np.float32)
+    node_feat = np.tile(feats, (N, 1)) * (1 + (sub.nodes[:, None] % 13) / 13.0)
+    labels = (np.maximum(sub.nodes, 0) % n_classes).astype(np.int32)
+    return GraphBatch(
+        node_feat=node_feat.astype(np.float32),
+        edge_src=sub.edge_src,
+        edge_dst=sub.edge_dst,
+        node_mask=sub.nodes >= 0,
+        edge_mask=sub.edge_mask,
+        edge_feat=np.zeros((sub.edge_cap, cfg.d_edge), np.float32)
+        if cfg.d_edge
+        else None,
+        node_pos=np.zeros((N, 3), np.float32) if cfg.kind == "egnn" else None,
+        graph_id=None,
+        n_graphs=1,
+        labels=labels,
+        label_mask=sub.seed_mask,
+    )
 
 
 def recsys_batch(

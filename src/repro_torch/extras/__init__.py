@@ -1,0 +1,4 @@
+"""Kernels that the JAX package keeps under ``src/repro/extras/``, each with
+its ``ops.py`` entry point: `segment_mp` (GNN message aggregation, run by
+``models/gnn.py`` through ``Kernels.segment_mp``) and `join_probe` (the
+sort-merge join's probe as two standalone kernels)."""

@@ -19,14 +19,12 @@ kernel has no backward yet (training is a later slice of the port).
 """
 from __future__ import annotations
 
-import math
-
-import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
+from repro_torch.models.schema import init_param, load_jax_params
 
 
 def recsys_schema(cfg: RecSysConfig) -> dict[str, tuple[tuple[int, ...], str]]:
@@ -51,18 +49,6 @@ def recsys_schema(cfg: RecSysConfig) -> dict[str, tuple[tuple[int, ...], str]]:
     sch["user_proj"] = ((F * d, d), "lecun")
     sch["item_proj"] = ((d, d), "lecun")
     return sch
-
-
-def _init(shape, kind: str, generator: torch.Generator, device) -> torch.Tensor:
-    """The JAX schema's init kinds (``src/repro/models/schema.py``): ``he``
-    and ``lecun`` are normals scaled by the fan-in (``shape[-2]``, or
-    ``shape[-1]`` for a vector), ``embed`` a normal × 0.02."""
-    if kind == "zeros":
-        return torch.zeros(shape, dtype=torch.float32, device=device)
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = {"he": math.sqrt(2.0 / fan_in), "lecun": math.sqrt(1.0 / fan_in), "embed": 0.02}[kind]
-    t = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return t.mul_(std)
 
 
 # ------------------------------------------------------------ embedding bag
@@ -132,7 +118,7 @@ class XDeepFM(nn.Module):
         self.cin = nn.ParameterDict()
         self.dnn = nn.ParameterDict()
         for name, (shape, kind) in recsys_schema(cfg).items():
-            p = nn.Parameter(_init(shape, kind, generator, dev), requires_grad=False)
+            p = nn.Parameter(init_param(shape, kind, generator, dev), requires_grad=False)
             group, _, leaf = name.rpartition(".")
             if group:
                 getattr(self, group)[leaf] = p
@@ -188,25 +174,4 @@ def params_from_jax(
 ) -> XDeepFM:
     """An `XDeepFM` holding the JAX package's parameters: ``params`` is the
     nested dict that ``repro.models.recsys.init`` returns, as numpy arrays."""
-    model = XDeepFM(cfg, device=device, kernels=kernels)
-    n_leaves = 0
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            node = params
-            for part in name.split("."):
-                node = node[part]
-            arr = np.array(node, dtype=np.float32)  # a copy: the input may be read-only
-            if arr.shape != tuple(p.shape):
-                raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(arr))
-            n_leaves += 1
-    given = _count_leaves(params)
-    if given != n_leaves:
-        raise ValueError(f"params has {given} arrays, the schema {n_leaves}")
-    return model
-
-
-def _count_leaves(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_count_leaves(v) for v in tree.values())
-    return 1
+    return load_jax_params(XDeepFM(cfg, device=device, kernels=kernels), params)

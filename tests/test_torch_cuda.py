@@ -199,3 +199,97 @@ def test_session_rows_equal_on_cpu_and_card(dev):
         pa = [p.rows for p in s_cpu.stream(q, page_size=50, block_rows=64)]
         pb = [p.rows for p in s_gpu.stream(q, page_size=50, block_rows=64)]
         assert len(pa) == len(pb) and all(np.array_equal(x, y) for x, y in zip(pa, pb))
+
+
+@pytest.mark.parametrize("E,d,n,hub", [(0, 4, 7, False), (1, 1, 3, False), (997, 1, 50, False),
+                                       (5000, 70, 300, False), (200_000, 64, 4000, True),
+                                       (168_960, 70, 169_984, False)])
+def test_segment_mp(dev, E, d, n, hub):
+    """fp32 sums in another order (and atomics in run-dependent order at
+    chunk edges, as the plain ``index_add_`` has too): held to
+    ``1e-4 · max|plain|`` — the hub sums 100,000 unit normals, and each
+    order is ~sqrt(n)·eps·|sum| (~1e-5 of it) off the exact sum;
+    out-of-range ids dropped, empty nodes zero."""
+    from repro_torch.extras.segment_mp import ops
+
+    rng = np.random.default_rng(E + d)
+    dst = rng.integers(-3, n + 3, E)
+    if hub:  # an R-MAT-like hub spread over many chunks
+        dst[rng.random(E) < 0.5] = n // 2
+    dst = np.sort(dst).astype(np.int32)
+    msg = rng.normal(size=(E, d)).astype(np.float32)
+    args = (on(dev, msg), on(dev, dst))
+    before = cuda.launch_counts()["segment_mp"]
+    got = ops.aggregate(*args, n_nodes=n)
+    want = ops.aggregate(*args, n_nodes=n, use_kernel=False)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["segment_mp"] == before + (1 if E else 0)
+    assert got.shape == want.shape == (n, d) and got.dtype == torch.float32
+    if E:
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    untouched = torch.ones(n, dtype=torch.bool, device=dev)
+    untouched[args[1][(args[1] >= 0) & (args[1] < n)].long()] = False
+    assert not got[untouched].any()
+
+
+@pytest.mark.parametrize("cap_a,cap_b,dup", [(8, 7, 6), (3, 4, 5), (8192, 262_144, 64),
+                                             (1 << 16, 1000, 3)])
+def test_join_probe(dev, cap_a, cap_b, dup):
+    from repro_torch.extras.join_probe import ops
+
+    rng = np.random.default_rng(cap_a + dup)
+    ka = np.sort(rng.integers(0, 2**32, cap_a, dtype=np.uint64) % (cap_a // 2 + 1) * 977
+                 + 2**31).astype(np.uint32)
+    ka[-1] = 0xFFFFFFFF
+    kb = np.concatenate([ka[rng.integers(0, cap_a, cap_b - 2)], [0, 0xFFFFFFFF]]).astype(np.uint32)
+    a, b = on(dev, ka), on(dev, kb)
+    c0 = cuda.launch_counts()
+    lo = ops.lower_bound(a, b)
+    hit, idx = ops.window(a, b, lo, dup_cap=dup)
+    lo_p = ops.lower_bound(a, b, use_kernel=False)
+    hit_p, idx_p = ops.window(a, b, lo_p, dup_cap=dup, use_kernel=False)
+    torch.cuda.synchronize()
+    c1 = cuda.launch_counts()
+    assert (c1["probe_lower_bound"], c1["probe_window"]) == (
+        c0["probe_lower_bound"] + 1, c0["probe_window"] + 1)
+    assert torch.equal(lo, lo_p) and torch.equal(hit, hit_p) and torch.equal(idx, idx_p)
+
+
+def test_gnn_on_card_matches_the_cpu(dev):
+    """Every GNN kind at its smoke config, the same weights on card and CPU:
+    outputs within ``1e-4 · max|cpu|`` with TF32 off."""
+    from repro_torch.configs import egnn, gatedgcn, gin_tu, meshgraphnet
+    from repro_torch.data.pipeline import gnn_full_batch
+    from repro_torch.graphstore import generators
+    from repro_torch.models.gnn import GNN
+    from repro_torch.train.step import make_serve_fns
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = generators.rmat(3000, 20_000, 4, seed=1)
+    for mod in (gin_tu, gatedgcn, egnn, meshgraphnet):
+        cfg = mod.smoke()
+        gpu = GNN(cfg, device=dev)
+        cpu = GNN(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        assert gpu.kernels.name == "cuda" and cpu.kernels.name == "torch"
+        batch = gnn_full_batch(cfg, g, n_classes=cfg.n_classes, seed=0)
+        before = cuda.launch_counts()["segment_mp"]
+        got = make_serve_fns(cfg, gpu)["infer"](batch).cpu()
+        assert cuda.launch_counts()["segment_mp"] > before
+        want = make_serve_fns(cfg, cpu)["infer"](batch)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max(), cfg.name
+
+
+def test_extras_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from repro_torch.extras.join_probe import join_probe
+    from repro_torch.extras.segment_mp import segment_mp
+
+    i32 = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        segment_mp.segment_mp(torch.zeros((4, 2), dtype=torch.float64, device=dev), i32, 3)
+    with pytest.raises(ValueError, match="int32"):
+        segment_mp.segment_mp(torch.zeros((4, 2), device=dev), i32.long(), 3)
+    with pytest.raises(ValueError, match="1 to 2"):
+        join_probe.probe_lower_bound(i32[:0], i32)
+    with pytest.raises(ValueError, match="does not match"):
+        join_probe.probe_window(i32, i32, i32[:2], dup_cap=2)

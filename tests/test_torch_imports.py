@@ -40,8 +40,15 @@ def test_the_port_has_its_modules():
     for mod in ("api/session.py", "core/engine.py", "core/match.py", "core/join.py",
                 "kernels/cuda.py", "runtime/resilience.py", "kernels/cin/cin.py",
                 "kernels/cin/ref.py", "configs/base.py", "configs/xdeepfm.py",
-                "models/recsys.py", "data/pipeline.py", "train/step.py"):
+                "models/recsys.py", "data/pipeline.py", "train/step.py",
+                "configs/gin_tu.py", "configs/gatedgcn.py", "configs/egnn.py",
+                "configs/meshgraphnet.py", "models/gnn.py", "models/schema.py",
+                "graphstore/sampler.py",
+                "extras/segment_mp/ref.py", "extras/segment_mp/segment_mp.py",
+                "extras/segment_mp/ops.py", "extras/join_probe/ref.py",
+                "extras/join_probe/join_probe.py", "extras/join_probe/ops.py"):
         assert f"src/repro_torch/{mod}" in names
-    for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu"):
+    for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu",
+                "segment_mp.cu", "join_probe.cu", "probe.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists()
     assert (ROOT / "chip_smoke.py").exists()
