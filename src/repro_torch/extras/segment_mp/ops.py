@@ -1,19 +1,15 @@
 """Entry point of the GNN message aggregation, as the JAX package's
 ``src/repro/extras/segment_mp/ops.py``: the kernel on the card, the plain
-version on the CPU or when ``use_kernel=False``."""
+version (`repro_torch.extras.segment_mp.ref`) on the CPU. The GNN models
+reach the same kernel through ``Kernels.segment_mp``."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.extras.segment_mp import ref
 from repro_torch.extras.segment_mp import segment_mp as k
 
 
-def aggregate(
-    messages: torch.Tensor, dst_sorted: torch.Tensor, *, n_nodes: int, use_kernel: bool = True
-) -> torch.Tensor:
+def aggregate(messages: torch.Tensor, dst_sorted: torch.Tensor, *, n_nodes: int) -> torch.Tensor:
     """Segment sum of ``messages (E, d)`` by ``dst_sorted (E,)`` into
     ``(n_nodes, d)``."""
-    if use_kernel:
-        return k.segment_mp(messages, dst_sorted, n_nodes)
-    return ref.segment_mp_reference(messages, dst_sorted, n_nodes)
+    return k.segment_mp(messages, dst_sorted, n_nodes)

@@ -21,6 +21,7 @@ from repro.extras.join_probe import ops as jax_probe  # noqa: E402
 from repro.extras.segment_mp import ops as jax_segment  # noqa: E402
 from repro_torch.core.backend import get_kernels  # noqa: E402
 from repro_torch.extras.join_probe import join_probe, ops as probe_ops  # noqa: E402
+from repro_torch.extras.join_probe import ref as probe_ref  # noqa: E402
 from repro_torch.extras.segment_mp import ops as segment_ops  # noqa: E402
 from repro_torch.extras.segment_mp import segment_mp  # noqa: E402
 from repro_torch.extras.segment_mp.ref import segment_mp_reference  # noqa: E402
@@ -79,7 +80,7 @@ def test_segment_mp_plain_version_takes_any_order():
     msg, dst, n = segment_case("out-of-range-ids")
     perm = np.random.default_rng(0).permutation(len(dst))
     want = segment_mp_reference(t(msg), t(dst), n)
-    got = segment_ops.aggregate(t(msg[perm]), t(dst[perm]), n_nodes=n, use_kernel=False)
+    got = segment_mp_reference(t(msg[perm]), t(dst[perm]), n)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -134,10 +135,12 @@ def test_join_probe_matches_jax(case, route):
     if route == "wrapper":
         lo = join_probe.probe_lower_bound(t(ka), t(kb))
         hit, idx = join_probe.probe_window(t(ka), t(kb), lo, dup_cap=dup)
-    else:
-        use = route == "ops"
-        lo = probe_ops.lower_bound(t(ka), t(kb), use_kernel=use)
-        hit, idx = probe_ops.window(t(ka), t(kb), lo, dup_cap=dup, use_kernel=use)
+    elif route == "ops":
+        lo = probe_ops.lower_bound(t(ka), t(kb))
+        hit, idx = probe_ops.window(t(ka), t(kb), lo, dup_cap=dup)
+    else:  # the plain versions themselves
+        lo = probe_ref.lower_bound_reference(t(ka), t(kb))
+        hit, idx = probe_ref.window_reference(t(ka), t(kb), lo, dup_cap=dup)
     assert lo.dtype == torch.int32 and hit.dtype == torch.bool and idx.dtype == torch.int32
     np.testing.assert_array_equal(lo.numpy(), lo_want)
     np.testing.assert_array_equal(hit.numpy(), hit_want)
