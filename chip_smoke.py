@@ -66,9 +66,34 @@ result lines are printed only when every phase passed):
      power-of-two build side whose duplicate run fills the window,
      ``dup_cap > capA``), and in agreement with ``hash_join_probe``: the
      window's hits with both rows valid and equal key columns are its
-     ``hit``, and the ``idx`` arrays are equal.
+     ``hit``, and the ``idx`` arrays are equal;
+ 11. lm — gemma-2b at its published widths and full depth (18 layers,
+     d_model 2048, 8 query heads on 1 kv head, head_dim 256, d_ff 16384
+     GeGLU, vocab 256,000 tied; 2,506,172,416 parameters, bf16; random
+     weights from a generator seeded 0) served through
+     ``make_serve_fns(cfg, model)``: ``"prefill"`` of 2 × 8,192
+     ``lm_batch`` tokens (seed 0; a cut of prefill_32k, 32,768 × 32, whose
+     logits alone would be 537 GB), then 32 greedy ``"decode"`` steps into
+     a cache of 8,224 slots grown from the prefill's. The counts are zeroed
+     before and read after each: ``flash_attention`` 18 per prefill, 0 in
+     decode. Each of the prefill's 18 attentions is held to
+     ``mha_reference`` within ``2e-2 ·`` each output row's max|plain|;
+     N(0,1) inputs at gemma's heads (fp32 within 2e-5, bf16 within 2e-2 of
+     the row's max) and at qwen2-72b's (64 on 8, head_dim 128, B = 1, S =
+     4,096, window 1,024, softcap 30) likewise. The fp32 model (TF32 off,
+     1 × 2,048 tokens) is held layer by layer: each layer's output and the
+     logits within ``1e-4 ·`` each row's max|plain|, with that layer's
+     attention by the kernel and by the plain version on one shared input.
+     Printed, not held: the bf16 served logits and greedy tokens against
+     ``kernels="torch"``, and the free-running fp32 logits against the
+     plain and a float64 plain forward (this init amplifies any rounding
+     difference ~30× a layer); prefill and decode-step times, device time
+     by kernel, peak memory. The kernel's row is timed on the served
+     path's layer-0 attention, beside SDPA (``is_causal``, ``enable_gqa``)
+     on pre-transposed inputs as ``library_ms``; its bound is taken at the
+     bf16 tensor-core rate, the fp32-FMA bound printed beside it.
 
-Before the last line it prints the eleven kernels as one JSON object, then
+Before the last line it prints the twelve kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
 ``{"ok": true, "device": {...}}``. It imports neither ``jax`` nor the JAX
 package.
@@ -91,12 +116,16 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (data sheet)
 TF32_OPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate (data sheet)
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate (data sheet)
 MATCHER_KERNELS = ("stwig_expand", "hash_join_probe", "bitset_lookup", "bitset_build",
                    "bitset_pack")
 PATENTS = dict(n_nodes=3_774_768, n_edges=16_522_438, n_labels=418, seed=0)
 # ogbn-products' counts (GNN_SHAPES["ogb_products"]): the edge count is
 # directed, so half of it is drawn and symmetrized; 47 labels (its classes)
 PRODUCTS = dict(n_nodes=2_449_029, n_edges=61_859_140 // 2, n_labels=47, seed=0)
+# gemma-2b served at a cut of prefill_32k (32,768 tokens × batch 32): 2 prompts of
+# 8,192 tokens, then 32 greedy decode steps into a cache of 8,224 slots
+LM_SERVE = dict(batch=2, seq=8192, decode=32)
 
 
 def log(msg: str) -> None:
@@ -423,12 +452,32 @@ def work(op, args, kw) -> tuple[int, float]:
         ka, kb, lo = args
         dup = kw["dup_cap"]
         return nbytes(ka, kb, lo) + 5 * kb.numel() * dup, 4.0 * kb.numel() * dup
+    if op == "flash_attention":
+        # Q·Kᵀ and P·V over the (query, key) pairs the causal/window mask keeps
+        q, k, v = args
+        B, S, Nq, H = q.shape
+        Hv = v.shape[-1]
+        pairs = B * Nq * attention_pairs(S, kw.get("window"))
+        return nbytes(q, k, v) + q.numel() // H * Hv * q.element_size(), pairs * (2.0 * H + 2.0 * Hv)
     raise KeyError(op)
+
+
+def attention_pairs(S: int, window: int | None) -> int:
+    """(query, key) pairs with key ≤ query (and key > query - window) in one
+    (batch, head) of S positions."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+# the rate each kernel's operation bound is taken at: fp32 CUDA cores, except
+# attention (bf16 on the main path), at the bf16 tensor-core rate
+OPS_RATE = {"flash_attention": BF16_OPS_PER_S}
 
 
 def kernel_row(op, args, kw, launches, err, ms, plain_ms, library_ms=None) -> dict:
     b, ops = work(op, args, kw)
-    t_bytes, t_ops = b / HBM_BYTES_PER_S * 1e3, ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_bytes, t_ops = b / HBM_BYTES_PER_S * 1e3, ops / OPS_RATE.get(op, CUDA_CORE_OPS_PER_S) * 1e3
     source, replaces = KERNEL_INFO[op]
     return {
         "name": op, "route": "cuda", "source": source, "replaces": replaces,
@@ -456,6 +505,8 @@ KERNEL_INFO = {
                           "src/repro/extras/join_probe/join_probe.py:38"),
     "probe_window": ("src/repro_torch/csrc/join_probe.cu",
                      "src/repro/extras/join_probe/join_probe.py:80"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/extras/flash_attention/flash_attention.py:86"),
 }
 
 
@@ -612,22 +663,22 @@ def rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
 
 
 def scaled_err(got: torch.Tensor, want: torch.Tensor, scale: torch.Tensor,
-               what: str) -> tuple[float, float]:
+               what: str, tol: float = 1e-4) -> tuple[float, float]:
     """``(largest |got - want| / scale, largest |got - want|)``, each element
     held to its own ``scale`` (broadcast to ``got``'s shape): fails above
-    1e-4, on a non-finite value, or where ``scale`` is 0 and the two differ
-    at all."""
+    ``tol``, on a non-finite value, or where ``scale`` is 0 and the two
+    differ at all."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         fail(f"{what}: non-finite values")
     err = (got - want).abs()
     scale = scale.expand_as(err)
-    bad = err > 1e-4 * scale
+    bad = err > tol * scale
     if bad.any():
         i = tuple(int(x) for x in bad.nonzero()[0])
         fail(f"{what}: {int(bad.sum())} elements off; at {i} |kernel - plain| "
-             f"{err[i].item():.3e} > 1e-4 · its scale {scale[i].item():.3e}")
+             f"{err[i].item():.3e} > {tol:g} · its scale {scale[i].item():.3e}")
     return ((err / scale.clamp_min(torch.finfo(scale.dtype).tiny)).max().item(),
             err.max().item())
 
@@ -1032,6 +1083,327 @@ def phase_probe(dev, probe_call) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------- phase 11
+def recording_flash_attention():
+    """The CUDA backend, keeping the inputs of every ``flash_attention``
+    call (references: the model does not change them after the call)."""
+    from repro_torch.core.backend import CudaKernels
+
+    class Recording(CudaKernels):
+        def __init__(self):
+            self.args = []
+
+        def flash_attention(self, q, k, v, **kw):
+            self.args.append((q, k, v, kw))
+            return super().flash_attention(q, k, v, **kw)
+
+    return Recording()
+
+
+def plain_float64():
+    """A backend whose attention is the plain version's arithmetic in
+    float64, rounded to the input's dtype: the same function in a finer
+    rounding — the control for how far two roundings of the forward part
+    (``mha_reference`` itself always computes in float32)."""
+    from repro_torch.core.backend import Kernels
+
+    class PlainFloat64(Kernels):
+        def flash_attention(self, q, k, v, *, scale=None, window=None, softcap=None):
+            B, S, Nq, H = q.shape
+            Nkv = k.shape[2]
+            scale = H**-0.5 if scale is None else scale
+            qg = q.reshape(B, S, Nkv, Nq // Nkv, H).double()
+            logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.double()) * scale
+            if softcap is not None:
+                logits = torch.tanh(logits / softcap) * softcap
+            pos = torch.arange(S, device=q.device)
+            ok = pos[None, :] <= pos[:, None]
+            if window is not None:
+                ok &= pos[None, :] > pos[:, None] - window
+            p = torch.softmax(logits.masked_fill(~ok, -1e30), dim=-1)
+            out = torch.einsum("bkgqs,bskh->bqkgh", p, v.double())
+            return out.reshape(B, S, Nq, v.shape[-1]).to(q.dtype)
+
+    return PlainFloat64()
+
+
+def own_row_scale(want: torch.Tensor) -> torch.Tensor:
+    """Each row's (last axis) own largest |value|."""
+    return want.abs().amax(dim=-1, keepdim=True)
+
+
+def row_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest over rows of max|got - want| / max|want| along the last
+    axis."""
+    return ((got - want).abs().amax(dim=-1) / own_row_scale(want)[..., 0]).max().item()
+
+
+def logits_diff(a: torch.Tensor, b: torch.Tensor, chunk: int = 1024) -> tuple[float, float]:
+    """(largest |a - b| / the row's max|b|, largest |a - b|) over (B, S, V)
+    logits, in float32, ``chunk`` positions at a time."""
+    ratio, err = 0.0, 0.0
+    for s0 in range(0, a.shape[1], chunk):
+        x, y = a[:, s0:s0 + chunk].float(), b[:, s0:s0 + chunk].float()
+        d = (x - y).abs()
+        ratio = max(ratio, (d / own_row_scale(y).clamp_min(1e-30)).max().item())
+        err = max(err, d.max().item())
+    return ratio, err
+
+
+def greedy(fns, logits, cache, cfg, dev, n: int):
+    """``n`` greedy decode steps after a prefill, the cache grown from the
+    prefill's as ``src/repro/launch/serve.py`` ``serve_lm`` does: the
+    tokens ``(B, n + 1)``, the grown cache and the last step's logits."""
+    from repro_torch.models.transformer import init_cache
+
+    B, S = logits.shape[:2]
+    grown = init_cache(cfg, B, S + n, device=dev)
+    for z, c in zip(grown.data, cache.data):
+        z[:, :, :S] = c
+    tok = logits[:, -1:].argmax(-1)
+    out = [tok]
+    for i in range(n):
+        step_logits, grown = fns["decode"](grown, tok, S + i)
+        tok = step_logits.argmax(-1)
+        out.append(tok)
+    return torch.cat(out, 1), grown, step_logits
+
+
+def phase_lm(dev) -> list[dict]:
+    import dataclasses
+
+    from repro_torch.configs import gemma_2b, qwen2_72b
+    from repro_torch.core.backend import get_kernels
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.extras.flash_attention.ref import mha_reference
+    from repro_torch.kernels import cuda
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.step import make_serve_fns
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_k = get_kernels("cuda")
+    B, S, T = LM_SERVE["batch"], LM_SERVE["seq"], LM_SERVE["decode"]
+
+    # ---- the smoke configs: the same logits on the card and on the CPU -----
+    smoke_errs = {}
+    for small in (gemma_2b.smoke(), dataclasses.replace(qwen2_72b.smoke(), sliding_window=40,
+                                                        attn_logit_softcap=30.0)):
+        m_gpu = Transformer(small, device=dev)
+        m_cpu = Transformer(small, device="cpu")
+        m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+        toks = lm_batch(small, 2, 200, seed=0, step=0)["tokens"]
+        want = make_serve_fns(small, m_cpu)["prefill"](toks)[0]
+        got = make_serve_fns(small, m_gpu)["prefill"](toks)[0].cpu()
+        smoke_errs[small.name] = scaled_err(got, want, own_row_scale(want),
+                                            f"{small.name} logits, card vs CPU")[0]
+    log(f"[lm] smoke configs (2 x 200 tokens): logits within 1e-4 of each row's max|cpu| on "
+        f"card and CPU (largest ratio { {k: f'{v:.3e}' for k, v in smoke_errs.items()} })")
+
+    # ---- set-up: gemma-2b at its published widths, bf16, seed 0 -------------
+    cfg = gemma_2b.CONFIG
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    if model.kernels.name != "cuda":
+        fail(f"Transformer on the card chose kernels {model.kernels.name!r}")
+    fns = make_serve_fns(cfg, model)
+    tokens = torch.from_numpy(lm_batch(cfg, B, S, seed=0, step=0)["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(nbytes(p) for p in model.parameters())
+    log(f"[lm] gemma-2b ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads on "
+        f"{cfg.n_kv_heads}, head_dim {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}): {n_params} parameters ({n_bytes / 1e9:.3f} GB) made on the card from "
+        f"seed 0, lm_batch tokens {tuple(tokens.shape)}, in {time.perf_counter() - t0:.2f} s")
+
+    # ---- the path: prefill, then greedy decode; counted ---------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    logits, cache = fns["prefill"](tokens)
+    torch.cuda.synchronize()
+    n_prefill = cuda.launch_counts()["flash_attention"]
+    cuda.reset_launch_counts()
+    out_k, grown, step_logits = greedy(fns, logits, cache, cfg, dev, T)
+    torch.cuda.synchronize()
+    n_decode = cuda.launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    if n_prefill != cfg.n_layers:
+        fail(f"flash_attention launched {n_prefill} times in a prefill of {cfg.n_layers} layers")
+    if n_decode != 0:
+        fail(f"flash_attention launched {n_decode} times in {T} decode steps (expected 0)")
+    if logits.shape != (B, S, cfg.vocab_size) or logits.dtype != torch.bfloat16:
+        fail(f"prefill logits {tuple(logits.shape)} {logits.dtype}")
+    if step_logits.shape != (B, 1, cfg.vocab_size) or out_k.shape != (B, T + 1):
+        fail(f"decode logits {tuple(step_logits.shape)}, tokens {tuple(out_k.shape)}")
+    if not all(bool(torch.isfinite(logits[:, s0:s0 + 1024]).all()) for s0 in range(0, S, 1024)):
+        fail("prefill logits: non-finite values")
+    if not torch.isfinite(step_logits).all():
+        fail("decode logits: non-finite values")
+    if cache.s_cap != S or grown.s_cap != S + T:
+        fail(f"cache slots {cache.s_cap} / {grown.s_cap}, not {S} / {S + T}")
+    log(f"[lm] path run: prefill {B} x {S} -> logits {tuple(logits.shape)} "
+        f"{str(logits.dtype).removeprefix('torch.')}, cache {tuple(cache.data[0].shape)} x 2; "
+        f"{T} greedy decode steps into {S + T} slots; flash_attention launches: {n_prefill} in "
+        f"the prefill ({cfg.n_layers} layers), {n_decode} in decode; max_memory_allocated "
+        f"{peak / 1e9:.3f} GB")
+
+    # ---- each of the prefill's attentions against the plain version ---------
+    rec = recording_flash_attention()
+    model.set_kernels(rec)
+    fns["prefill"](tokens)
+    model.set_kernels("cuda")
+    if len(rec.args) != cfg.n_layers:
+        fail(f"recorded {len(rec.args)} attention calls, not {cfg.n_layers}")
+    call_errs = []
+    for i, (q, k, v, kw) in enumerate(rec.args):
+        got, want = cuda_k.flash_attention(q, k, v, **kw), mha_reference(q, k, v, **kw)
+        call_errs.append(scaled_err(got.float(), want.float(), own_row_scale(want.float()),
+                                    f"layer {i} prefill attention (bf16)", tol=2e-2))
+        del got, want
+    log(f"[lm] the {len(call_errs)} prefill attentions (q {tuple(rec.args[0][0].shape)}, "
+        f"k/v {tuple(rec.args[0][1].shape)}, bf16) within 2e-2 of each output row's max|plain|: "
+        f"largest ratio {max(r for r, _ in call_errs):.3e}, largest |kernel - plain| "
+        f"{max(e for _, e in call_errs):.3e}")
+
+    # ---- N(0,1) inputs at gemma's and qwen2-72b's heads ---------------------
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for what, (b, s, nq, nkv, h), kw in (
+            ("gemma-2b heads", (B, S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head), {}),
+            ("qwen2-72b heads", (1, 4096, 64, 8, 128), dict(window=1024, softcap=30.0))):
+        for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dt)
+                       for sh in ((b, s, nq, h), (b, s, nkv, h), (b, s, nkv, h)))
+            got, want = cuda_k.flash_attention(q, k, v, **kw), mha_reference(q, k, v, **kw)
+            ratio, err = scaled_err(got.float(), want.float(), own_row_scale(want.float()),
+                                    f"{what}, N(0,1), {dt}", tol=tol)
+            del got, want
+            ms = time_ms(lambda: cuda_k.flash_attention(q, k, v, **kw), reps=5)
+            ops = work("flash_attention", (q, k, v), kw)[1]
+            log(f"[lm] {what} N(0,1) {str(dt).removeprefix('torch.')} q {(b, s, nq, h)} "
+                f"k/v {(b, s, nkv, h)} {kw}: within {tol:g} of each row's max|plain| (largest "
+                f"ratio {ratio:.3e}, |kernel - plain| {err:.3e}); kernel {ms:.4f} ms, "
+                f"{ops / ms / 1e9:.2f} TFLOP/s (fp32-FMA bound {ops / CUDA_CORE_OPS_PER_S * 1e3:.4f} "
+                f"ms, bf16 tensor bound {ops / BF16_OPS_PER_S * 1e3:.4f} ms)")
+            del q, k, v
+
+    # ---- the kernel line's row: layer 0's attention on the served path ------
+    q, k, v, kw = rec.args[0]
+    del rec
+    ms = time_ms(lambda: cuda_k.flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: mha_reference(q, k, v, **kw), reps=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    del qt, kt, vt
+    row = kernel_row("flash_attention", (q, k, v), kw, n_prefill,
+                     max(e for _, e in call_errs), ms, plain_ms, lib_ms)
+    b, ops = work("flash_attention", (q, k, v), kw)
+    log(f"[lm] flash_attention, served layer ({tuple(q.shape)} x {tuple(k.shape)} bf16): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound {row['bound_ms']:.4f} "
+        f"ms ({row['bound_by']}, bf16 tensor rate; {ops:.4g} operations, {b / 1e6:.1f} MB), "
+        f"fp32-FMA bound {ops / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms; "
+        f"{ops / ms / 1e9:.2f} TFLOP/s; kernel alone: "
+        f"{profile_line(device_profile(lambda: cuda_k.flash_attention(q, k, v, **kw)))}")
+    del q, k, v
+
+    # ---- the served path: times, device time by kernel ---------------------
+    prefill_ms = time_ms(lambda: fns["prefill"](tokens), reps=3)
+    last = out_k[:, T - 1:T]
+    decode_ms = time_ms(lambda: fns["decode"](grown, last, S + T - 1))
+    log(f"[lm] prefill {B} x {S}: {prefill_ms:.4f} ms ({B * S / prefill_ms * 1e3:.0f} tokens/s), "
+        f"attention {n_prefill} x {ms:.4f} ms = {100 * n_prefill * ms / prefill_ms:.1f}% of it; "
+        f"decode step (batch {B}, {S + T} slots): {decode_ms:.4f} ms")
+    log(f"[lm] prefill {profile_line(device_profile(lambda: fns['prefill'](tokens), reps=1))}")
+    log(f"[lm] decode step "
+        f"{profile_line(device_profile(lambda: fns['decode'](grown, last, S + T - 1)))}")
+
+    # ---- bf16 served logits against kernels="torch" (printed, not held) -----
+    model.set_kernels("torch")
+    plain_logits, plain_cache = fns["prefill"](tokens)
+    plain_prefill_ms = time_ms(lambda: fns["prefill"](tokens), reps=1)
+    out_p = greedy(fns, plain_logits, plain_cache, cfg, dev, T)[0]
+    model.set_kernels("cuda")
+    ratio, err = logits_diff(logits, plain_logits)
+    last_agree = (logits[:, -1].argmax(-1) == plain_logits[:, -1].argmax(-1)).float().mean().item()
+    log(f"[lm] bf16 served logits vs kernels='torch' (not held): largest |kernel - plain| "
+        f"{err:.4g}, {ratio:.3e} of the row's max|plain|; greedy tokens agree "
+        f"{(out_k == out_p).float().mean().item():.4f} of {out_k.numel()}, the prefill's last "
+        f"argmax {last_agree:.2f}; plain prefill {plain_prefill_ms:.4f} ms")
+    del logits, cache, grown, plain_logits, plain_cache, step_logits, model, fns
+    torch.cuda.empty_cache()
+
+    # ---- fp32 full width, B = 1, S = 2,048 ----------------------------------
+    # Held layer by layer: each layer's output, and the logits, with that
+    # layer's attention by the kernel and by the plain version on one shared
+    # input (the kernel path's stream). The free-running forwards are only
+    # printed: this init's attention logits (scale ~720) amplify any ulp-level
+    # difference ~30x a layer, so two roundings of the same function part by
+    # O(1) within 18 layers; the plain version computed in float64 shows how
+    # far, for the kernel and the plain version alike.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = Transformer(cfg32, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    fns = make_serve_fns(cfg32, model)
+    toks = tokens[:1, :2048]
+    cuda.reset_launch_counts()
+    got = fns["prefill"](toks)[0]
+    torch.cuda.synchronize()
+    if cuda.launch_counts()["flash_attention"] != cfg.n_layers:
+        fail(f"fp32 prefill launched flash_attention {cuda.launch_counts()['flash_attention']} "
+             f"times, not {cfg.n_layers}")
+    # the kernel path's stream, and two free-running streams: the plain
+    # version's, and the plain version's in float64
+    others = {"plain": "torch", "float64-plain": plain_float64()}
+    layer_ratios, drift = [], {name: [] for name in others}
+    vs64 = {"kernel": [], "plain": []}  # each layer on the shared input, against float64
+    with torch.inference_mode():
+        x = model.embed_tokens(toks)
+        free = dict.fromkeys(others, x)
+        positions = torch.arange(toks.shape[1], device=dev)[None]
+        for l in range(cfg.n_layers):
+            outs = {}
+            for name, kern in (("plain", "torch"), ("float64", others["float64-plain"]),
+                               ("kernel", "cuda")):
+                model.set_kernels(kern)
+                outs[name] = model.layer(l, x, positions)[0]
+            for name, kern in others.items():
+                model.set_kernels(kern)
+                free[name] = model.layer(l, free[name], positions)[0]
+            model.set_kernels("cuda")
+            x, x_plain = outs["kernel"], outs["plain"]
+            layer_ratios.append(scaled_err(x, x_plain, own_row_scale(x_plain),
+                                           f"fp32 layer {l} output, shared input")[0])
+            for name in vs64:
+                vs64[name].append(row_rel(outs[name], outs["float64"]))
+            for name in others:
+                drift[name].append(row_rel(x, free[name]))
+            del outs
+        logits_k, logits_p = model.head(x), model.head(x_plain)
+        ratio, err = scaled_err(logits_k, logits_p, own_row_scale(logits_p),
+                                "fp32 full-width logits, last layer's attention kernel vs plain")
+        same = bool(torch.equal(logits_k, got))
+        del x, x_plain, logits_p, got
+        free_logits = {name: model.head(free[name]) for name in others}
+        at_logits = {f"kernel vs {name}": logits_diff(logits_k, free_logits[name])
+                     for name in others}
+        at_logits["plain vs float64-plain"] = logits_diff(free_logits["plain"],
+                                                          free_logits["float64-plain"])
+    log(f"[lm] fp32 gemma-2b (TF32 off), {toks.shape[0]} x {toks.shape[1]} tokens, layer by "
+        f"layer on a shared input: every layer's output and the logits within 1e-4 of each "
+        f"row's max|plain| (largest ratio by layer {[f'{r:.2e}' for r in layer_ratios]}; "
+        f"logits {ratio:.3e}, |kernel - plain| {err:.3e}); the kernel stream's logits equal "
+        f"the served forward's bit for bit: {same}; largest |diff| / the row's max against "
+        f"the float64 version on the same input, by layer: "
+        + "; ".join(f"{name} {[f'{d:.1e}' for d in vs64[name]]}" for name in vs64))
+    log(f"[lm] fp32 free-running streams (not held), largest |diff| / the row's max after each "
+        f"layer: " + "; ".join(f"kernel vs {name} {[f'{d:.1e}' for d in drift[name]]}"
+                               for name in others)
+        + f"; at the logits {[f'{k} {r:.3e}' for k, (r, _) in at_logits.items()]}")
+    del model, fns, logits_k, free, free_logits
+    torch.cuda.empty_cache()
+    return [row]
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     name, smi = phase_device()
@@ -1129,6 +1501,10 @@ def main() -> None:
 
     # ---- phase 10: the join probe's two kernels on the query path's join ----
     kernel_rows += phase_probe(dev, probe_call)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: gemma-2b prefill and decode at its published widths ------
+    kernel_rows += phase_lm(dev)
     if sorted(r["name"] for r in kernel_rows) != sorted(KERNEL_INFO):
         fail(f"the kernel line has {[r['name'] for r in kernel_rows]}, not {list(KERNEL_INFO)}")
 

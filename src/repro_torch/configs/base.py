@@ -1,8 +1,64 @@
 """Config dataclasses, copied from the JAX package's ``configs/base.py``:
-only what a ported model path reads (the GNN and recsys families so far)."""
+only what a ported model path reads (the LM, GNN and recsys families).
+`MoEConfig` and `MLAConfig` are copied field for field so that an LM config
+is the JAX package's; the port's LM serves neither yet."""
 from __future__ import annotations
 
 import dataclasses
+
+
+# --------------------------------------------------------------------- LM
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    router: str = "softmax"          # softmax (Mixtral) | sigmoid (DeepSeek-V3)
+    router_bias_balancing: bool = False  # aux-loss-free bias update (DSv3)
+    n_groups: int = 1                # group-limited routing (DSv3)
+    top_groups: int = 1
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.0
+    first_k_dense: int = 0           # leading dense layers (DSv3: 3)
+    d_ff_dense: int = 0              # d_ff of those dense layers
+    dispatch_groups: int = 1         # DP-local dispatch groups (1 = one global)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab_size: int
+    act: str = "swiglu"              # swiglu | geglu
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    sliding_window: int | None = None
+    attn_logit_softcap: float | None = None
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
+    mtp_depth: int = 0               # multi-token-prediction heads (DSv3)
+    emb_scale: bool = False          # gemma scales embeddings by sqrt(d)
+    dtype: str = "bfloat16"
+    remat: str = "none"              # none | block | full
+    decode_kv_blocks: int = 1        # split-KV decode blocks (1 = one softmax)
+    inference_param_sharding: str = "fsdp"  # fsdp | tp_replicated
 
 
 @dataclasses.dataclass(frozen=True)

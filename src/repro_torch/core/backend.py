@@ -3,14 +3,18 @@
 Every dense step that the JAX package runs as a TPU kernel — the bitset
 pack/unpack/lookup/build, the standalone candidate filter, the fused STwig
 expansion, the sort-merge join probe and the xDeepFM CIN layer — is an op
-on a `Kernels` object. The engine, `models.recsys.XDeepFM` and
-`models.gnn.GNN` call through whatever `Kernels` they were given, and the
+on a `Kernels` object. The engine, `models.recsys.XDeepFM`,
+`models.gnn.GNN` and `models.transformer.Transformer` call through whatever
+`Kernels` they were given, and the
 backend's name is part of every `ExecutableCache` key.
 
-The port has one op more than the JAX package's eight: ``segment_mp``, the
+The port has two ops more than the JAX package's eight: ``segment_mp``, the
 GNN message aggregation, is the port's wiring of ``repro.extras.segment_mp``
 (which the JAX models reach only as ``jax.ops.segment_sum``), so that
-`models.gnn` runs it as a kernel on the card.
+`models.gnn` runs it as a kernel on the card; ``flash_attention`` is its
+wiring of ``repro.extras.flash_attention`` (which the JAX LM reaches only as
+the jnp ``models/layers.attention``), so that `models.transformer` runs every
+prefill attention as a kernel on the card.
 
 Registered backends:
 
@@ -34,6 +38,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.extras.flash_attention import flash_attention as _flash
+from repro_torch.extras.flash_attention import ref as _flash_ref
 from repro_torch.extras.segment_mp import ref as _segment_ref
 from repro_torch.extras.segment_mp import segment_mp as _segment
 from repro_torch.kernels.bitset import bitset as _bitset
@@ -108,6 +114,10 @@ OP_CONTRACTS: tuple[OpContract, ...] = (
     OpContract("segment_mp", lambda dev: ((
         _ex((16, 4), _F32, dev), _ex((16,), _I32, dev), 8,
     ), {}), (_F32,)),
+    # the port's own op (repro.extras.flash_attention): q, k, v; out in q's dtype
+    OpContract("flash_attention", lambda dev: ((
+        _ex((1, 4, 2, 8), _F32, dev), _ex((1, 4, 1, 8), _F32, dev), _ex((1, 4, 1, 8), _F32, dev),
+    ), dict(window=2, softcap=30.0)), (_F32,)),
 )
 
 
@@ -178,6 +188,13 @@ class Kernels:
         ascending; the plain version takes any order."""
         return _segment_ref.segment_mp_reference(messages, dst_sorted, n_nodes)
 
+    # ------------------------------------------------------------------ LM
+    def flash_attention(self, q, k, v, *, scale=None, window=None, softcap=None) -> torch.Tensor:
+        """Causal GQA attention over ``Sq == Skv``: ``q (B, S, Nq, H)``,
+        ``k (B, S, Nkv, H)``, ``v (B, S, Nkv, Hv)`` → ``(B, S, Nq, Hv)`` in
+        q's dtype, with an optional sliding ``window`` and tanh ``softcap``."""
+        return _flash_ref.mha_reference(q, k, v, scale=scale, window=window, softcap=softcap)
+
     # ------------------------------------------------------------ host
     def mask_to_host(self, mask: torch.Tensor) -> np.ndarray:
         """A device bool mask as a host numpy array, moved as packed words."""
@@ -220,6 +237,9 @@ class CudaKernels(Kernels):
 
     def segment_mp(self, messages, dst_sorted, n_nodes):
         return _segment.segment_mp(messages, dst_sorted, n_nodes)
+
+    def flash_attention(self, q, k, v, *, scale=None, window=None, softcap=None):
+        return _flash.flash_attention(q, k, v, scale=scale, window=window, softcap=softcap)
 
 
 # ------------------------------------------------------------------ registry

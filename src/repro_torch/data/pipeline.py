@@ -5,10 +5,17 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.configs.base import GNNConfig, RecSysConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, RecSysConfig
 from repro_torch.graphstore.csr import Graph
 from repro_torch.graphstore.sampler import NeighborSampler
 from repro_torch.models.gnn import GraphBatch
+
+
+def lm_batch(cfg: LMConfig, batch: int, seq: int, *, seed: int, step: int) -> dict:
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    # zipfian tokens: realistic softmax/label statistics
+    z = rng.zipf(1.3, size=(batch, seq)).astype(np.int64)
+    return {"tokens": (z % cfg.vocab_size).astype(np.int32)}
 
 
 def gnn_full_batch(

@@ -1,0 +1,79 @@
+"""Wrapper of the causal GQA flash-attention CUDA kernel
+(``csrc/flash_attention.cu``).
+
+`flash_attention` replaces ``flash_attention`` (body ``_attn_kernel``) of
+``src/repro/extras/flash_attention/flash_attention.py``: forward attention
+with a causal mask, an optional sliding window and an optional tanh softcap,
+over ``Sq == Skv``. One block owns 64 (position, query head) rows of one
+(batch, kv head) and walks the kv tiles they need with an fp32 online
+softmax; tiles wholly above the diagonal or outside the window are skipped.
+
+The layout is the JAX package's: ``q (B, S, Nq, H)``, ``k (B, S, Nkv, H)``,
+``v (B, S, Nkv, Hv)``, no transposes. A CPU tensor goes to the plain version
+(`repro_torch.extras.flash_attention.ref`); a CUDA tensor launches the
+kernel or raises: on a device mix, a dtype other than float32 or bfloat16
+(or two dtypes), a non-contiguous input, ``Sq != Skv``, ``Nq % Nkv``, ``H``
+or ``Hv`` above 256, a ``window`` under 1 or a ``softcap`` not above 0.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.extras.flash_attention import ref
+from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+FLASH_ATTENTION = CudaKernel(
+    "flash_attention", "flash_attention",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I],
+)
+MAX_HEAD_DIM = 256
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """Causal GQA attention ``(B, S, Nq, H) × (B, S, Nkv, H) × (B, S, Nkv,
+    Hv) → (B, S, Nq, Hv)`` in q's dtype; ``scale`` defaults to ``H**-0.5``."""
+    if on_cpu(q, k, v):
+        return ref.mha_reference(q, k, v, scale=scale, window=window, softcap=softcap)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check(t, name, q.dtype, 4)
+    B, S, Nq, H = q.shape
+    Bk, Skv, Nkv, Hk = k.shape
+    if v.shape[:3] != k.shape[:3] or Bk != B or Hk != H:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         "do not agree")
+    Hv = v.shape[3]
+    if Skv != S:
+        raise ValueError(f"the kernel takes square attention: Sq {S} != Skv {Skv}")
+    if Nkv == 0 or Nq % Nkv:
+        raise ValueError(f"{Nq} query heads do not group over {Nkv} kv heads")
+    if H > MAX_HEAD_DIM or Hv > MAX_HEAD_DIM:
+        raise ValueError(f"head dims H {H}, Hv {Hv}: the kernel takes at most {MAX_HEAD_DIM}")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window}: at least 1")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap {softcap}: must be above 0")
+    if S * (Nq // Nkv) >= 2**31:
+        raise ValueError(f"{S} positions × {Nq // Nkv} heads a group: over the int32 row count")
+    out = torch.empty((B, S, Nq, Hv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    scale = scale if scale is not None else H**-0.5
+    vec = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)) and H % 4 == 0 and Hv % 4 == 0
+    FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Nq, Nkv,
+                    H, Hv, float(scale), window or 0, float(softcap or 0.0),
+                    int(q.dtype == torch.bfloat16), int(vec))
+    return out

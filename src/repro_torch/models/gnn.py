@@ -38,7 +38,7 @@ from torch import nn
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
-from repro_torch.models.schema import init_param, load_jax_params
+from repro_torch.models.schema import attach, load_jax_params
 
 
 class GraphBatch(NamedTuple):
@@ -113,21 +113,6 @@ def gnn_schema(cfg: GNNConfig) -> dict:
     return sch
 
 
-def _is_leaf(v) -> bool:
-    return isinstance(v, tuple)
-
-
-def _build(tree: dict, generator, device) -> nn.Module:
-    """A group of the schema as a module: a `ParameterDict` of leaves, or a
-    `ModuleDict` of groups."""
-    if all(_is_leaf(v) for v in tree.values()):
-        return nn.ParameterDict({
-            k: nn.Parameter(init_param(*v, generator, device), requires_grad=False)
-            for k, v in tree.items()
-        })
-    return nn.ModuleDict({k: _build(v, generator, device) for k, v in tree.items()})
-
-
 def _mlp(p, x: torch.Tensor, n: int, layer: int | None = None) -> torch.Tensor:
     """``n`` affine maps with ReLU between; ``layer`` picks one slice of a
     stacked group."""
@@ -175,12 +160,7 @@ class GNN(nn.Module):
             generator = torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         self.kernels = resolve_kernels(kernels, dev)
-        for name, v in gnn_schema(cfg).items():
-            if _is_leaf(v):
-                self.register_parameter(
-                    name, nn.Parameter(init_param(*v, generator, dev), requires_grad=False))
-            else:
-                self.add_module(name, _build(v, generator, dev))
+        attach(self, gnn_schema(cfg), generator, dev)
 
     @property
     def device(self) -> torch.device:

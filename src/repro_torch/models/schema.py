@@ -1,6 +1,7 @@
 """Parameters of the port's models, as the JAX package's ``models/schema.py``
-makes them: the init kinds of its schemas, and the copy of a JAX parameter
-tree into a module whose parameter names are that tree's paths."""
+makes them: the init kinds of its schemas, each leaf in its own dtype, and
+the copy of a JAX parameter tree into a module whose parameter names are
+that tree's paths."""
 from __future__ import annotations
 
 import math
@@ -9,24 +10,64 @@ import numpy as np
 import torch
 from torch import nn
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-def init_param(shape, kind: str, generator: torch.Generator, device) -> torch.Tensor:
+
+def init_param(shape, kind: str, generator: torch.Generator, device,
+               dtype: str = "float32") -> torch.Tensor:
     """The JAX schema's init kinds (``src/repro/models/schema.py``): ``he``
     and ``lecun`` are normals scaled by the fan-in (``shape[-2]``, or
-    ``shape[-1]`` for a vector), ``embed`` a normal × 0.02, ``zeros``."""
+    ``shape[-1]`` for a vector), ``embed`` a normal × 0.02, ``zeros`` and
+    ``ones``. The normal is drawn and scaled in float32, then cast to
+    ``dtype``, as the JAX initialisers do."""
+    dt = DTYPES[dtype]
     if kind == "zeros":
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=dt, device=device)
+    if kind == "ones":
+        return torch.ones(shape, dtype=dt, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = {"he": math.sqrt(2.0 / fan_in), "lecun": math.sqrt(1.0 / fan_in), "embed": 0.02}[kind]
     t = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return t.mul_(std)
+    return t.mul_(std).to(dt)
+
+
+def _is_leaf(v) -> bool:
+    """A schema leaf is a tuple ``(shape, init kind[, dtype])``; a group is
+    a dict."""
+    return isinstance(v, tuple)
+
+
+def _param(leaf: tuple, generator: torch.Generator, device) -> nn.Parameter:
+    shape, kind, *dtype = leaf
+    return nn.Parameter(init_param(shape, kind, generator, device, *dtype), requires_grad=False)
+
+
+def _group(tree: dict, generator: torch.Generator, device) -> nn.Module:
+    """A group of a schema as a module: a `ParameterDict` of leaves, or a
+    `ModuleDict` of groups."""
+    if all(_is_leaf(v) for v in tree.values()):
+        return nn.ParameterDict({k: _param(v, generator, device) for k, v in tree.items()})
+    return nn.ModuleDict({k: _group(v, generator, device) for k, v in tree.items()})
+
+
+def attach(module: nn.Module, schema: dict, generator: torch.Generator, device) -> None:
+    """Give ``module`` the parameters of ``schema`` (a nested dict of
+    leaves), drawn from ``generator`` in the schema's order: a top-level
+    leaf becomes a parameter, a group a submodule of that name. Parameters
+    do not require gradients (serving)."""
+    for name, v in schema.items():
+        if _is_leaf(v):
+            module.register_parameter(name, _param(v, generator, device))
+        else:
+            module.add_module(name, _group(v, generator, device))
 
 
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     """Copy ``params`` (a nested dict of numpy arrays, as a JAX model's
     ``init`` returns it) into ``model``, whose dotted parameter names are
-    the paths of that tree. Raises on a shape mismatch or a leaf count
-    that differs."""
+    the paths of that tree. Each array is read through float32 (exact for
+    bf16) and lands in its parameter's own dtype. Raises on a shape
+    mismatch or a leaf count that differs."""
     n_leaves = 0
     with torch.no_grad():
         for name, p in model.named_parameters():

@@ -1,6 +1,6 @@
 """Family-specific serving entry points, as the JAX package's
-``train/step.make_serve_fns``. The port serves the GNN and recsys families
-so far; training steps, and the LM family, are later slices (ROADMAP
+``train/step.make_serve_fns``. The port serves the dense LM, GNN and recsys
+families; training steps, and the MoE/MLA LMs, are later slices (ROADMAP
 Queue 1, item 10)."""
 from __future__ import annotations
 
@@ -8,15 +8,22 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import GNNConfig, RecSysConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, RecSysConfig
 from repro_torch.models.gnn import batch_to
 
 
 def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
     """The serving entry points of ``model`` (built for ``cfg``), run under
     `torch.inference_mode`. Inputs may be numpy arrays or tensors; they are
-    moved to the model's device. For `GNNConfig` (``model`` a
-    `repro_torch.models.gnn.GNN`):
+    moved to the model's device. For `LMConfig` (``model`` a
+    `repro_torch.models.transformer.Transformer`, dense GQA/MQA):
+
+      * ``"prefill"(tokens)`` → ``(logits (B, S, V), DecodeCache)``;
+      * ``"decode"(cache, token, pos)`` → ``(logits (B, 1, V), DecodeCache)``
+        for ``token (B, 1)`` at position ``pos`` (an int); the cache is
+        written in place.
+
+    For `GNNConfig` (``model`` a `repro_torch.models.gnn.GNN`):
 
       * ``"infer"(graph)`` → the model's outputs for a `GraphBatch`.
 
@@ -25,13 +32,26 @@ def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
       * ``"score"(ids, bag_mask)`` → the CTR logits ``(B,)``;
       * ``"retrieve"(ids, bag_mask, cand_ids)`` → candidate scores ``(Nc,)``.
     """
-    if not isinstance(cfg, (GNNConfig, RecSysConfig)):
+    if not isinstance(cfg, (LMConfig, GNNConfig, RecSysConfig)):
         raise NotImplementedError(
-            f"{type(cfg).__name__}: the port serves the GNN and recsys families only; "
-            "the LM family is ROADMAP Queue 1, item 10"
-        )
+            f"{type(cfg).__name__}: the port serves the dense LM, GNN and recsys families; "
+            "the MoE/MLA LM family and training are ROADMAP Queue 1, item 10")
     if model.cfg != cfg:
         raise ValueError(f"the model was built for {model.cfg.name!r}, not {cfg.name!r}")
+
+    def on(x):
+        return torch.as_tensor(x, device=model.device)
+
+    if isinstance(cfg, LMConfig):
+        def prefill(tokens):
+            with torch.inference_mode():
+                return model.prefill(on(tokens))
+
+        def decode(cache, token, pos):
+            with torch.inference_mode():
+                return model.decode_step(cache, on(token), pos)
+
+        return {"prefill": prefill, "decode": decode}
 
     if isinstance(cfg, GNNConfig):
         def infer(graph):
@@ -39,9 +59,6 @@ def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
                 return model(batch_to(graph, model.device))
 
         return {"infer": infer}
-
-    def on(x):
-        return torch.as_tensor(x, device=model.device)
 
     def score(ids, bag_mask):
         with torch.inference_mode():

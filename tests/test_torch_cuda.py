@@ -295,3 +295,100 @@ def test_extras_wrappers_reject_what_the_kernels_do_not_take(dev):
         join_probe.probe_lower_bound(i32[:0], i32)
     with pytest.raises(ValueError, match="does not match"):
         join_probe.probe_window(i32, i32, i32[:2], dup_cap=2)
+
+
+# ---------------------------------------------------------- flash_attention
+@pytest.mark.parametrize("B,S,Nq,Nkv,H,Hv,window,softcap", [
+    (2, 200, 8, 1, 256, 256, None, None),    # gemma's heads, S not a multiple of 64
+    (1, 1000, 8, 1, 256, 256, 100, 30.0),
+    (1, 300, 16, 2, 128, 128, 64, 30.0),     # qwen2's head dim, G = 8
+    (2, 129, 4, 2, 128, 128, 1, None),       # the diagonal only
+    (1, 77, 6, 3, 40, 24, 500, None),        # window past S, Hv != H, ragged head dims
+    (1, 50, 2, 1, 30, 30, 7, None),          # head dim not a multiple of 4 (scalar loads)
+    (1, 1, 1, 1, 8, 8, None, None),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention(dev, B, S, Nq, Nkv, H, Hv, window, softcap, dtype):
+    """The kernel against the plain version on N(0,1) inputs, each output
+    row within ``tol ·`` its max|plain| (fp32 2e-5, bf16 2e-2); TF32 off."""
+    from repro_torch.extras.flash_attention import flash_attention as fa
+    from repro_torch.extras.flash_attention.ref import mha_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(S * 7 + H)
+    q, k, v = (on(dev, rng.normal(size=sh).astype(np.float32)).to(dtype)
+               for sh in ((B, S, Nq, H), (B, S, Nkv, H), (B, S, Nkv, Hv)))
+    before = cuda.launch_counts()["flash_attention"]
+    got = get_kernels("cuda").flash_attention(q, k, v, window=window, softcap=softcap)
+    want = mha_reference(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape and torch.isfinite(got).all()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    scale = want.float().abs().amax(dim=-1, keepdim=True)
+    assert ((got.float() - want.float()).abs() <= tol * scale).all()
+    # and through the entry point, with a scale of its own
+    got = fa.flash_attention(q, k, v, scale=0.05, window=window, softcap=softcap)
+    want = mha_reference(q, k, v, scale=0.05, window=window, softcap=softcap)
+    scale = want.float().abs().amax(dim=-1, keepdim=True)
+    assert ((got.float() - want.float()).abs() <= tol * scale).all()
+
+
+def test_lm_on_card_matches_the_cpu(dev):
+    """gemma-2b and qwen2-72b smoke configs (fp32), the same weights on card
+    and CPU: prefill logits and the decode step within ``1e-4 ·`` each row's
+    max|cpu|, TF32 off; the prefill launches one kernel a layer."""
+    import dataclasses
+
+    from repro_torch.configs import gemma_2b, qwen2_72b
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.step import make_serve_fns
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for cfg in (gemma_2b.smoke(), dataclasses.replace(qwen2_72b.smoke(), sliding_window=40,
+                                                      attn_logit_softcap=30.0)):
+        gpu = Transformer(cfg, device=dev)
+        cpu = Transformer(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        assert gpu.kernels.name == "cuda" and cpu.kernels.name == "torch"
+        tokens = lm_batch(cfg, 2, 130, seed=0, step=0)["tokens"]
+        before = cuda.launch_counts()["flash_attention"]
+        f_gpu, f_cpu = make_serve_fns(cfg, gpu), make_serve_fns(cfg, cpu)
+        got, c_gpu = f_gpu["prefill"](tokens)
+        assert cuda.launch_counts()["flash_attention"] == before + cfg.n_layers
+        want, c_cpu = f_cpu["prefill"](tokens)
+        scale = want.abs().amax(dim=-1, keepdim=True)
+        assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), cfg.name
+        tok = want[:, -1:].argmax(-1)
+        # the cache has no free slot past the prompt: decode the last position again
+        got, _ = f_gpu["decode"](c_gpu, tok, 129)
+        want, _ = f_cpu["decode"](c_cpu, tok, 129)
+        scale = want.abs().amax(dim=-1, keepdim=True)
+        assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), cfg.name
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
+    from repro_torch.extras.flash_attention import flash_attention as fa
+
+    q = torch.zeros((1, 8, 4, 32), device=dev)
+    kv = torch.zeros((1, 8, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        fa.flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv)
+    with pytest.raises(ValueError, match="square"):
+        fa.flash_attention(q, kv[:, :5].contiguous(), kv[:, :5].contiguous())
+    with pytest.raises(ValueError, match="group"):
+        fa.flash_attention(q[:, :, :3].contiguous(), kv, kv)
+    big = torch.zeros((1, 8, 1, 264), device=dev)
+    with pytest.raises(ValueError, match="at most 256"):
+        fa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, kv, kv, window=0)
+    with pytest.raises(ValueError, match="softcap"):
+        fa.flash_attention(q, kv, kv, softcap=-1.0)
+    with pytest.raises(ValueError, match="several devices"):
+        fa.flash_attention(q, kv.cpu(), kv)

@@ -1,25 +1,38 @@
 """The port's ``extras`` kernels' plain versions against the JAX package's
 entry points on the CPU: ``segment_mp`` against
-``repro.extras.segment_mp.ops.aggregate(use_pallas=False)`` and the join
+``repro.extras.segment_mp.ops.aggregate(use_pallas=False)``, the join
 probe against ``repro.extras.join_probe.ops.lower_bound`` / ``window``
-(``use_pallas=False``: the plain references, never interpret mode).
+(``use_pallas=False``: the plain references, never interpret mode), and
+flash attention's plain version against
+``repro.extras.flash_attention.mha_reference`` (jnp).
 
 The port's wrappers and entry points take CPU tensors to those plain
 versions, so they are checked here too; the CUDA kernels are held to the
 plain versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 Tolerances: the join probe is integer and bool, equal bit for bit; the
 segment sum is fp32 in another summation order, ``rtol=1e-5, atol=1e-5``
-(sums of up to 600 unit normals).
+(sums of up to 600 unit normals); attention takes the JAX kernel test's
+(``tests/test_kernels.py``): ``2e-5`` in fp32 and ``2e-2`` in bf16, both
+absolute and relative.
 """
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.extras.flash_attention import mha_reference as jax_mha  # noqa: E402
 from repro.extras.join_probe import ops as jax_probe  # noqa: E402
 from repro.extras.segment_mp import ops as jax_segment  # noqa: E402
 from repro_torch.core.backend import get_kernels  # noqa: E402
+from repro_torch.extras.flash_attention import flash_attention  # noqa: E402
+from repro_torch.extras.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.extras.flash_attention.ref import mha_reference  # noqa: E402
 from repro_torch.extras.join_probe import join_probe, ops as probe_ops  # noqa: E402
 from repro_torch.extras.join_probe import ref as probe_ref  # noqa: E402
 from repro_torch.extras.segment_mp import ops as segment_ops  # noqa: E402
@@ -156,3 +169,63 @@ def test_wrappers_refuse_a_device_mix():
     with pytest.raises(ValueError, match="several devices"):
         segment_mp.segment_mp(torch.zeros((2, 3)), torch.zeros(2, dtype=torch.int32,
                                                                device="meta"), 4)
+
+
+# -------------------------------------------------------- flash_attention
+# (b, s, nkv, g, h, dtype, window, softcap): every window × softcap of the
+# JAX kernel test's grid, dtype alternating and G (1/2/4), H (32-128), kv
+# heads and S (64-256) cycling; then gemma's head dim (256), a window of 1
+# (the diagonal only) and one past S
+FLASH_CASES = [
+    ((1, 2)[i % 2], (64, 128, 256)[i % 3], (1, 2, 4)[i // 2], (1, 2, 4)[i % 3],
+     (32, 64, 128)[(i + 1) % 3], ("float32", "bfloat16")[i % 2], window, softcap)
+    for i, (window, softcap) in enumerate((w, c) for w in (None, 32, 100) for c in (None, 30.0))
+] + [
+    (1, 64, 1, 8, 256, "float32", None, None),
+    (1, 64, 1, 8, 256, "bfloat16", 40, 30.0),
+    (2, 64, 2, 2, 32, "float32", 1, None),
+    (1, 128, 1, 4, 64, "bfloat16", 1, 30.0),
+    (1, 64, 2, 2, 32, "float32", 500, None),
+]
+
+
+def _as_bf16_exact(x):
+    """numpy fp32 values that bf16 holds exactly (both packages then see
+    the same inputs)."""
+    return np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("b,s,nkv,g,h,dt,window,softcap", FLASH_CASES)
+def test_mha_reference_matches_jax(b, s, nkv, g, h, dt, window, softcap):
+    rng = np.random.default_rng(s * 31 + nkv * 7 + h)
+    q, k, v = (_as_bf16_exact(rng.normal(size=shape)) for shape in
+               ((b, s, nkv * g, h), (b, s, nkv, h), (b, s, nkv, h)))
+    jfn = jax.jit(functools.partial(jax_mha, window=window, softcap=softcap))
+    want = np.asarray(jfn(*(jnp.asarray(x, dt) for x in (q, k, v))).astype(jnp.float32))
+    tdt = getattr(torch, dt)
+    got = mha_reference(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), window=window,
+                        softcap=softcap)
+    assert got.dtype == tdt and got.shape == (b, s, nkv * g, h)
+    tol = 2e-5 if dt == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("fn", [mha_reference, flash_attention.flash_attention,
+                                get_kernels("torch").flash_attention,
+                                get_kernels("cuda").flash_attention, flash_ops.attention_fwd],
+                         ids=["ref", "wrapper", "torch-backend", "cuda-backend", "ops"])
+def test_flash_attention_routes_match_jax(fn):
+    """Every CPU route to attention is the plain version; a given ``scale``
+    is honoured."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=sh).astype(np.float32)
+               for sh in ((2, 96, 6, 40), (2, 96, 2, 40), (2, 96, 2, 24)))
+    want = np.asarray(jax_mha(q, k, v, scale=0.3, window=20, softcap=30.0))
+    got = fn(*map(torch.from_numpy, (q, k, v)), scale=0.3, window=20, softcap=30.0)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_wrapper_refuses_a_device_mix():
+    q = torch.zeros((1, 4, 2, 8))
+    with pytest.raises(ValueError, match="several devices"):
+        flash_attention.flash_attention(q, q[:, :, :1], torch.zeros((1, 4, 1, 8), device="meta"))

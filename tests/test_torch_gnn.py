@@ -233,8 +233,15 @@ def test_serve_fn_on_minibatch_matches_jax(graphs):
 
 
 def test_lm_configs_still_raise():
+    from repro_torch.configs import MoEConfig, gemma_2b
+    from repro_torch.models.transformer import Transformer
+
     model = gnn.GNN(SMOKE["gin"], device="cpu")
     with pytest.raises(NotImplementedError, match="LM family"):
         make_serve_fns(object(), model)
+    moe = dataclasses.replace(gemma_2b.smoke(), moe=MoEConfig(n_experts=4, top_k=2,
+                                                              d_ff_expert=32))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
+        Transformer(moe, device="cpu")
     with pytest.raises(ValueError, match="built for"):
         make_serve_fns(SMOKE["egnn"], model)

@@ -46,9 +46,13 @@ def test_the_port_has_its_modules():
                 "graphstore/sampler.py",
                 "extras/segment_mp/ref.py", "extras/segment_mp/segment_mp.py",
                 "extras/segment_mp/ops.py", "extras/join_probe/ref.py",
-                "extras/join_probe/join_probe.py", "extras/join_probe/ops.py"):
+                "extras/join_probe/join_probe.py", "extras/join_probe/ops.py",
+                "configs/gemma_2b.py", "configs/qwen2_72b.py", "models/layers.py",
+                "models/transformer.py", "extras/flash_attention/ref.py",
+                "extras/flash_attention/flash_attention.py",
+                "extras/flash_attention/ops.py"):
         assert f"src/repro_torch/{mod}" in names
     for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu",
-                "segment_mp.cu", "join_probe.cu", "probe.cuh"):
+                "segment_mp.cu", "join_probe.cu", "probe.cuh", "flash_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists()
     assert (ROOT / "chip_smoke.py").exists()

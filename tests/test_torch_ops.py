@@ -238,8 +238,10 @@ def test_op_contracts_are_the_references():
 
     want = {c.op: tuple("int32" if d == "uint32" else d for d in c.out_dtypes)
             for c in JAX_CONTRACTS}
-    # the port's one op more: segment_mp, its wiring of repro.extras.segment_mp
+    # the port's two ops more: segment_mp and flash_attention, its wiring of
+    # repro.extras.segment_mp and repro.extras.flash_attention
     want["segment_mp"] = ("float32",)
+    want["flash_attention"] = ("float32",)
     got = {c.op: tuple(str(d).removeprefix("torch.") for d in c.out_dtypes)
            for c in OP_CONTRACTS}
     assert got == want
