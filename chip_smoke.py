@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase, one card
+    python3 chip_smoke.py --only recsys,lm     # those phases (recsys, gnn, lm) alone
 
 Phases (each prints one line or more; any failure exits non-zero, and the
 result lines are printed only when every phase passed):
@@ -8,7 +9,9 @@ result lines are printed only when every phase passed):
   1. device — the card's name, and its power limit from ``nvidia-smi``;
   2. build — every ``src/repro_torch/csrc/*.cu`` compiled by ``nvcc`` for
      ``sm_90a``, all sources at once; the seconds it took and each kernel's
-     registers/spills as ``ptxas`` reports them;
+     registers/spills as ``ptxas`` reports them (``flash_attention_tc``'s
+     consumers run at the 240 registers ``setmaxnreg`` gives them, not the
+     168 ptxas prints for the kernel);
   3. main path — a US-Patents-shaped R-MAT graph (3,774,768 nodes,
      16,522,438 edges, 418 labels, seed 0) opened with
      ``GraphSession.open(g)`` on the card (CUDA kernels), eight or more
@@ -42,7 +45,9 @@ result lines are printed only when every phase passed):
      ``"score"`` at serve_p99 (B = 512) and serve_bulk (B = 262,144),
      ``"retrieve"`` at retrieval_cand (1 query × 1,000,000 candidates), with
      the counts zeroed before and read after (``cin_layer`` 3 per forward).
-     TF32 is off. Each CIN layer at serve_p99 and the logits are held to the
+     TF32 is off for the plain versions (the kernel runs split TF32 on the
+     tensor cores, its bound taken at the TF32 rate, the fp32 bound printed
+     beside it). Each CIN layer at serve_p99 and the logits are held to the
      plain versions within ``1e-4 · max|plain|``; at serve_bulk each layer's
      and the logits' first 4,096 rows are; the smoke config gives the same
      logits on card and CPU.
@@ -75,25 +80,31 @@ result lines are printed only when every phase passed):
      ``lm_batch`` tokens (seed 0; a cut of prefill_32k, 32,768 × 32, whose
      logits alone would be 537 GB), then 32 greedy ``"decode"`` steps into
      a cache of 8,224 slots grown from the prefill's. The counts are zeroed
-     before and read after each: ``flash_attention`` 18 per prefill, 0 in
-     decode. Each of the prefill's 18 attentions is held to
-     ``mha_reference`` within ``2e-2 ·`` each output row's max|plain|;
-     N(0,1) inputs at gemma's heads (fp32 within 2e-5, bf16 within 2e-2 of
-     the row's max) and at qwen2-72b's (64 on 8, head_dim 128, B = 1, S =
-     4,096, window 1,024, softcap 30) likewise. The fp32 model (TF32 off,
-     1 × 2,048 tokens) is held layer by layer: each layer's output and the
-     logits within ``1e-4 ·`` each row's max|plain|, with that layer's
-     attention by the kernel and by the plain version on one shared input.
+     before and read after each: ``flash_attention``'s tensor-core route
+     (``flash_attention_tc``) 18 per prefill and its FMA route 0, both 0 in
+     decode. Each of the prefill's 18 attentions goes through the
+     tensor-core route again and is held to ``mha_reference`` within
+     ``2e-2 ·`` each output row's max|plain|; N(0,1) inputs at gemma's heads
+     (fp32 through the FMA route within 2e-5, bf16 through the tensor-core
+     route within 2e-2 of the row's max) and at qwen2-72b's (64 on 8,
+     head_dim 128, B = 1, S = 4,096, window 1,024, softcap 30) likewise, each
+     call failing if another route moved. The fp32 model (TF32 off, 1 ×
+     2,048 tokens; 18 FMA-route launches, counted) is held layer by layer:
+     each layer's output and the logits within ``1e-4 ·`` each row's
+     max|plain|, with that layer's attention by the kernel and by the plain
+     version on one shared input.
      Printed, not held: the bf16 served logits and greedy tokens against
      ``kernels="torch"``, and the free-running fp32 logits against the
      plain and a float64 plain forward (this init amplifies any rounding
      difference ~30× a layer); prefill and decode-step times, device time
-     by kernel, peak memory. The kernel's row is timed on the served
-     path's layer-0 attention, beside SDPA (``is_causal``, ``enable_gqa``)
-     on pre-transposed inputs as ``library_ms``; its bound is taken at the
-     bf16 tensor-core rate, the fp32-FMA bound printed beside it.
+     by kernel, peak memory. The tensor-core route's row is timed on the
+     served path's layer-0 attention (the FMA route timed on the same call
+     beside it), with SDPA (``is_causal``, ``enable_gqa``) on
+     pre-transposed inputs as ``library_ms`` and its bound at the bf16
+     tensor-core rate; the FMA route's row on the fp32 N(0,1) call at
+     gemma's heads, its bound at the fp32 CUDA-core rate.
 
-Before the last line it prints the twelve kernels as one JSON object, then
+Before the last line it prints the thirteen kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
 ``{"ok": true, "device": {...}}``. It imports neither ``jax`` nor the JAX
 package.
@@ -220,7 +231,7 @@ def phase_build() -> None:
         f"into {cuda.BUILD_DIR.relative_to(ROOT)}")
     for src, text in msgs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "Used " in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {src}: {line.strip()}")
 
 
@@ -452,7 +463,7 @@ def work(op, args, kw) -> tuple[int, float]:
         ka, kb, lo = args
         dup = kw["dup_cap"]
         return nbytes(ka, kb, lo) + 5 * kb.numel() * dup, 4.0 * kb.numel() * dup
-    if op == "flash_attention":
+    if op in ("flash_attention", "flash_attention_tc"):
         # Q·Kᵀ and P·V over the (query, key) pairs the causal/window mask keeps
         q, k, v = args
         B, S, Nq, H = q.shape
@@ -471,8 +482,10 @@ def attention_pairs(S: int, window: int | None) -> int:
 
 
 # the rate each kernel's operation bound is taken at: fp32 CUDA cores, except
-# attention (bf16 on the main path), at the bf16 tensor-core rate
-OPS_RATE = {"flash_attention": BF16_OPS_PER_S}
+# the kernels on the tensor cores: attention's bf16 route at the bf16 rate,
+# the CIN layer (split TF32) at the TF32 rate; the fp32 bounds are printed
+# beside them
+OPS_RATE = {"flash_attention_tc": BF16_OPS_PER_S, "cin_layer": TF32_OPS_PER_S}
 
 
 def kernel_row(op, args, kw, launches, err, ms, plain_ms, library_ms=None) -> dict:
@@ -507,6 +520,8 @@ KERNEL_INFO = {
                      "src/repro/extras/join_probe/join_probe.py:80"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/extras/flash_attention/flash_attention.py:86"),
+    "flash_attention_tc": ("src/repro_torch/csrc/flash_attention_tc.cu",
+                           "src/repro/extras/flash_attention/flash_attention.py:86"),
 }
 
 
@@ -779,12 +794,12 @@ def phase_recsys(dev) -> list[dict]:
             lib_ms = time_ms(lambda: torch.einsum(
                 "bhd,bmd,hmk->bkd", xk, x0, W.view(H, x0.shape[1], W.shape[1])))
             row = kernel_row("cin_layer", args, {}, counts["cin_layer"], err, ms, plain_ms, lib_ms)
-            tf32_ms = work("cin_layer", args, {})[1] / TF32_OPS_PER_S * 1e3
+            fp32_ms = work("cin_layer", args, {})[1] / CUDA_CORE_OPS_PER_S * 1e3
             log(f"[recsys] CIN layer {i} serve_p99 {tuple(xk.shape)} x {tuple(W.shape)}: "
-                f"max abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"einsum {lib_ms:.4f} ms, fp32 bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}), TF32 bound {tf32_ms:.4f} ms, "
-                f"{work('cin_layer', args, {})[1] / ms / 1e9:.2f} TFLOP/s")
+                f"max abs err {err:.3e} ({err / want.abs().max().item():.3e} of max|plain|); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, einsum {lib_ms:.4f} ms, TF32 "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), fp32 bound {fp32_ms:.4f} "
+                f"ms, {work('cin_layer', args, {})[1] / ms / 1e9:.2f} TFLOP/s")
             layer_rows.append(row)
             p99_cin_ms += ms
             xk = want
@@ -1175,10 +1190,24 @@ def phase_lm(dev) -> list[dict]:
     from repro_torch.configs import gemma_2b, qwen2_72b
     from repro_torch.core.backend import get_kernels
     from repro_torch.data.pipeline import lm_batch
+    from repro_torch.extras.flash_attention import flash_attention as fa
     from repro_torch.extras.flash_attention.ref import mha_reference
     from repro_torch.kernels import cuda
     from repro_torch.models.transformer import Transformer
     from repro_torch.train.step import make_serve_fns
+
+    TC, FMA = fa.FLASH_ATTENTION_TC.symbol, fa.FLASH_ATTENTION.symbol
+
+    def routed(fn, want: str, what: str):
+        """``fn()``, failing unless it launched route ``want`` once and the
+        other route not at all."""
+        before = cuda.launch_counts()
+        out = fn()
+        after = cuda.launch_counts()
+        moved = {r: after[k.symbol] - before[k.symbol] for r, k in fa.ROUTES.items()}
+        if moved != {r: int(r == want) for r in fa.ROUTES}:
+            fail(f"{what}: route launches {moved}, expected one {want!r}")
+        return out
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1222,14 +1251,15 @@ def phase_lm(dev) -> list[dict]:
     cuda.reset_launch_counts()
     logits, cache = fns["prefill"](tokens)
     torch.cuda.synchronize()
-    n_prefill = cuda.launch_counts()["flash_attention"]
+    n_prefill, n_prefill_fma = cuda.launch_counts()[TC], cuda.launch_counts()[FMA]
     cuda.reset_launch_counts()
     out_k, grown, step_logits = greedy(fns, logits, cache, cfg, dev, T)
     torch.cuda.synchronize()
-    n_decode = cuda.launch_counts()["flash_attention"]
+    n_decode = cuda.launch_counts()[TC] + cuda.launch_counts()[FMA]
     peak = torch.cuda.max_memory_allocated()
-    if n_prefill != cfg.n_layers:
-        fail(f"flash_attention launched {n_prefill} times in a prefill of {cfg.n_layers} layers")
+    if n_prefill != cfg.n_layers or n_prefill_fma != 0:
+        fail(f"a prefill of {cfg.n_layers} layers launched the tensor-core route {n_prefill} "
+             f"times and the FMA route {n_prefill_fma} times (expected {cfg.n_layers} and 0)")
     if n_decode != 0:
         fail(f"flash_attention launched {n_decode} times in {T} decode steps (expected 0)")
     if logits.shape != (B, S, cfg.vocab_size) or logits.dtype != torch.bfloat16:
@@ -1244,8 +1274,9 @@ def phase_lm(dev) -> list[dict]:
         fail(f"cache slots {cache.s_cap} / {grown.s_cap}, not {S} / {S + T}")
     log(f"[lm] path run: prefill {B} x {S} -> logits {tuple(logits.shape)} "
         f"{str(logits.dtype).removeprefix('torch.')}, cache {tuple(cache.data[0].shape)} x 2; "
-        f"{T} greedy decode steps into {S + T} slots; flash_attention launches: {n_prefill} in "
-        f"the prefill ({cfg.n_layers} layers), {n_decode} in decode; max_memory_allocated "
+        f"{T} greedy decode steps into {S + T} slots; flash_attention launches: {n_prefill} of "
+        f"the tensor-core route and {n_prefill_fma} of the FMA route in the prefill "
+        f"({cfg.n_layers} layers), {n_decode} in decode; max_memory_allocated "
         f"{peak / 1e9:.3f} GB")
 
     # ---- each of the prefill's attentions against the plain version ---------
@@ -1257,50 +1288,66 @@ def phase_lm(dev) -> list[dict]:
         fail(f"recorded {len(rec.args)} attention calls, not {cfg.n_layers}")
     call_errs = []
     for i, (q, k, v, kw) in enumerate(rec.args):
-        got, want = cuda_k.flash_attention(q, k, v, **kw), mha_reference(q, k, v, **kw)
+        got = routed(lambda: cuda_k.flash_attention(q, k, v, **kw), "tc", f"layer {i} attention")
+        want = mha_reference(q, k, v, **kw)
         call_errs.append(scaled_err(got.float(), want.float(), own_row_scale(want.float()),
                                     f"layer {i} prefill attention (bf16)", tol=2e-2))
         del got, want
     log(f"[lm] the {len(call_errs)} prefill attentions (q {tuple(rec.args[0][0].shape)}, "
-        f"k/v {tuple(rec.args[0][1].shape)}, bf16) within 2e-2 of each output row's max|plain|: "
+        f"k/v {tuple(rec.args[0][1].shape)}, bf16), each through the tensor-core route, within "
+        f"2e-2 of each output row's max|plain|: "
         f"largest ratio {max(r for r, _ in call_errs):.3e}, largest |kernel - plain| "
         f"{max(e for _, e in call_errs):.3e}")
 
     # ---- N(0,1) inputs at gemma's and qwen2-72b's heads ---------------------
     gen = torch.Generator(device=dev).manual_seed(1)
+    fma_row = None
     for what, (b, s, nq, nkv, h), kw in (
             ("gemma-2b heads", (B, S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head), {}),
             ("qwen2-72b heads", (1, 4096, 64, 8, 128), dict(window=1024, softcap=30.0))):
-        for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for dt, tol, rt in ((torch.float32, 2e-5, "fma"), (torch.bfloat16, 2e-2, "tc")):
             q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dt)
                        for sh in ((b, s, nq, h), (b, s, nkv, h), (b, s, nkv, h)))
-            got, want = cuda_k.flash_attention(q, k, v, **kw), mha_reference(q, k, v, **kw)
+            got = routed(lambda: cuda_k.flash_attention(q, k, v, **kw), rt, f"{what} {dt}")
+            want = mha_reference(q, k, v, **kw)
             ratio, err = scaled_err(got.float(), want.float(), own_row_scale(want.float()),
                                     f"{what}, N(0,1), {dt}", tol=tol)
             del got, want
             ms = time_ms(lambda: cuda_k.flash_attention(q, k, v, **kw), reps=5)
             ops = work("flash_attention", (q, k, v), kw)[1]
             log(f"[lm] {what} N(0,1) {str(dt).removeprefix('torch.')} q {(b, s, nq, h)} "
-                f"k/v {(b, s, nkv, h)} {kw}: within {tol:g} of each row's max|plain| (largest "
-                f"ratio {ratio:.3e}, |kernel - plain| {err:.3e}); kernel {ms:.4f} ms, "
+                f"k/v {(b, s, nkv, h)} {kw}, {rt} route: within {tol:g} of each row's max|plain| "
+                f"(largest ratio {ratio:.3e}, |kernel - plain| {err:.3e}); kernel {ms:.4f} ms, "
                 f"{ops / ms / 1e9:.2f} TFLOP/s (fp32-FMA bound {ops / CUDA_CORE_OPS_PER_S * 1e3:.4f} "
                 f"ms, bf16 tensor bound {ops / BF16_OPS_PER_S * 1e3:.4f} ms)")
+            if fma_row is None and rt == "fma":
+                # the FMA route's row: fp32 at gemma's served shape (its launches
+                # are the fp32 prefill's, below)
+                plain_ms = time_ms(lambda: mha_reference(q, k, v, **kw), reps=3)
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+                del qt, kt, vt
+                fma_row = kernel_row("flash_attention", (q, k, v), kw, None, err, ms, plain_ms,
+                                     lib_ms)
             del q, k, v
 
     # ---- the kernel line's row: layer 0's attention on the served path ------
     q, k, v, kw = rec.args[0]
     del rec
     ms = time_ms(lambda: cuda_k.flash_attention(q, k, v, **kw))
+    fma_ms = time_ms(lambda: fa.launch(q, k, v, via="fma", **kw), reps=3)
     plain_ms = time_ms(lambda: mha_reference(q, k, v, **kw), reps=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
     del qt, kt, vt
-    row = kernel_row("flash_attention", (q, k, v), kw, n_prefill,
+    row = kernel_row("flash_attention_tc", (q, k, v), kw, n_prefill,
                      max(e for _, e in call_errs), ms, plain_ms, lib_ms)
-    b, ops = work("flash_attention", (q, k, v), kw)
-    log(f"[lm] flash_attention, served layer ({tuple(q.shape)} x {tuple(k.shape)} bf16): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound {row['bound_ms']:.4f} "
+    b, ops = work("flash_attention_tc", (q, k, v), kw)
+    log(f"[lm] flash_attention, served layer ({tuple(q.shape)} x {tuple(k.shape)} bf16): "
+        f"tensor-core route {ms:.4f} ms, the FMA route on the same call {fma_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms; bound {row['bound_ms']:.4f} "
         f"ms ({row['bound_by']}, bf16 tensor rate; {ops:.4g} operations, {b / 1e6:.1f} MB), "
         f"fp32-FMA bound {ops / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms; "
         f"{ops / ms / 1e9:.2f} TFLOP/s; kernel alone: "
@@ -1348,9 +1395,11 @@ def phase_lm(dev) -> list[dict]:
     cuda.reset_launch_counts()
     got = fns["prefill"](toks)[0]
     torch.cuda.synchronize()
-    if cuda.launch_counts()["flash_attention"] != cfg.n_layers:
-        fail(f"fp32 prefill launched flash_attention {cuda.launch_counts()['flash_attention']} "
-             f"times, not {cfg.n_layers}")
+    n_fp32 = cuda.launch_counts()[FMA]
+    if n_fp32 != cfg.n_layers or cuda.launch_counts()[TC] != 0:
+        fail(f"fp32 prefill launched the FMA route {n_fp32} times and the tensor-core route "
+             f"{cuda.launch_counts()[TC]} times, not {cfg.n_layers} and 0")
+    fma_row["launches"] = n_fp32
     # the kernel path's stream, and two free-running streams: the plain
     # version's, and the plain version's in float64
     others = {"plain": "torch", "float64-plain": plain_float64()}
@@ -1401,11 +1450,21 @@ def phase_lm(dev) -> list[dict]:
         + f"; at the logits {[f'{k} {r:.3e}' for k, (r, _) in at_logits.items()]}")
     del model, fns, logits_k, free, free_logits
     torch.cuda.empty_cache()
-    return [row]
+    return [row, fma_row]
 
 
 # ------------------------------------------------------------------- main
+PARTIAL = {"recsys": phase_recsys, "gnn": phase_gnn, "lm": phase_lm}
+
+
 def main() -> None:
+    only = None
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        only = sys.argv[2].split(",")
+        if not set(only) <= set(PARTIAL):
+            fail(f"--only takes a comma-separated subset of {sorted(PARTIAL)}")
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--only {','.join(PARTIAL)}]")
     name, smi = phase_device()
     from repro_torch.api import GraphSession
     from repro_torch.graphstore import generators
@@ -1414,6 +1473,14 @@ def main() -> None:
 
     phase_build()
     dev = torch.device("cuda")
+    if only is not None:  # a partial run: those phases, their rows, no result line
+        rows = []
+        for phase in only:
+            rows += PARTIAL[phase](dev)
+            torch.cuda.empty_cache()
+        print(json.dumps({"kernels": rows}), flush=True)
+        log(f"[partial] phases {only} passed; no result line (a whole run prints it)")
+        return
 
     # ---- the graph (set-up: made on the host from the seed) ----------------
     t0 = time.perf_counter()

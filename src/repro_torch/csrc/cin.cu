@@ -1,122 +1,324 @@
-// Fused xDeepFM CIN layer for Hopper (sm_90a).
+// Fused xDeepFM CIN layer for Hopper (sm_90a), on the tensor cores through
+// TF32 wgmma in split TF32 (three TF32 products a term), fp32 accuracy kept.
 //
 // Replaces the TPU kernel cin_layer of src/repro/kernels/cin/cin.py
 // (_cin_kernel): one layer of the Compressed Interaction Network,
 //   out[b, h', dd] = sum_{h, m'} w[h*m + m', h'] * xk[b, h, dd] * x0[b, m', dd].
 // What the TPU kernel keeps out of device memory is the outer product
 // z = xk (x) x0 of shape (B, H*m, d), 82 GB at B = 262,144 and the xDeepFM
-// widths. Here too z exists only as a shared-memory tile.
+// widths. Here no z exists at all: with n = b*d + dd one of N = B*d columns,
+//   out[h', n] = sum_h xk[n, h] * P_h[h', n],  P_h[h', n] = sum_m' w[h*m + m', h'] * x0[n, m'],
+// so each h is a GEMM of K = m (W_h^T: H' x m' against X0: m' x N) whose
+// result is scaled column by column by xk[:, h] and summed in fp32. At the
+// xDeepFM widths (H' = 200, m = 39, H = 39 or 200) a column does about
+// 2*H'*H*m operations for 4*(H + m + H') bytes: operations bound it, 0.032
+// ms at the 495 TFLOP/s of TF32 at serve_p99's layer 1.
 //
-// Seen as a GEMM: out[h', n] = sum_k W[k, h'] * Z[k, n] with M = H' rows,
-// K = H*m (h-major: k = h*m + m'), and N = B*d columns n = b*d + dd, where
-// Z[k, n] = xk[b, k / m, dd] * x0[b, k % m, dd] is generated while a tile
-// loads. At the xDeepFM widths (H' = 200, K = 1,521 or 7,800) a column does
-// 2*H'*K FLOP for 4*(H + m + H') bytes, so the card's fp32 rate bounds it
-// (67 TFLOP/s without tensor cores), not its bytes.
+// Design.
+// - Split TF32: each operand x is split into hi = x with its low 13
+//   mantissa bits cleared (a TF32 value) and lo = x - hi (exact in fp32;
+//   the tensor core reads its top 10 mantissa bits), and each product is
+//   hi*hi + hi*lo + lo*hi, accumulated in fp32: the dropped lo*lo and lo's
+//   truncation are ~2^-20 of a term. The tensor core's own fp32 sums
+//   truncate, and over K = 7,800 terms that bias alone comes near the
+//   bound; here the tensor cores sum only one h's m terms (P_h), and the
+//   sum over h is a rounded fp32 FMA. Held to the fp32 plain version within
+//   1e-4 * max|plain|.
+// - wgmma m64n64k8 TF32. A = W_h^T from registers: TF32 wgmma takes a
+//   shared-memory operand only K-major, and w is (H*m, H') row-major, but
+//   register fragments may come from any layout, so each thread loads its
+//   elements of W_h from a shared-memory stage of w's rows and splits them.
+//   B = X0 (m' x 64 columns), K-major in shared memory (no swizzle: core
+//   matrices of 8 columns x 16 bytes, LBO = 128 bytes to the next 4 of K,
+//   SBO = 256 to the next 8 columns), hi and lo made once per block.
+// - A block is 4 consumer warpgroups, each 64 rows of H' (256 a block;
+//   H' = 200 wastes 22%, H' > 256 takes more blocks along y), and 64
+//   columns of N. A unit is one h's rows of w, at most 40 (m > 40 takes
+//   several units an h), staged by cp.async with xk[:, h] into a ring of
+//   two stages, the next unit's copy overlapping this unit's products.
+// - Filling the card: when the column tiles are too few for the SMs
+//   (serve_p99: N = 5,120, 80 tiles for 132 SMs), the h range is split ks
+//   ways (blockIdx.z) and the parts are added into a zeroed output with
+//   fp32 atomics, in an order that varies from run to run: the same 1e-4
+//   bound holds. At serve_bulk ks = 1: plain stores, the same sums at every
+//   run.
 //
-// Design: a plain shared-memory-tiled SGEMM. A block owns a 64 x 64 output
-// tile (64 rows of H', 64 columns of N). Per K step of 16 it stages the
-// 16 x 64 tile of W (coalesced rows of w) and generates the 16 x 64 tile of
-// Z from xk and x0: each thread owns one column of it, so the column's
-// (b, dd) and its base pointers are computed once. Each of the 256 threads
-// keeps a 4 x 4 accumulator and reads both tiles as float4. fp32 FMA only,
-// no TF32, so the result is held to the fp32 plain version. The ragged
-// edges are masked: rows past H' and columns past N load zeros and are not
-// stored. Left for a later PR: TF32 or wgmma (495 TFLOP/s), double
-// buffering, and the 22% of rows wasted at H' = 200 (four tiles of 64).
-//
-// The entry point returns cudaGetLastError() after its launch.
+// The entry point returns the error of zeroing the output, of raising the
+// block's shared-memory limit (the wrapper keeps m <= 104), or
+// cudaGetLastError() after its launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
-constexpr int kRowsPerPass = kThreads / BN;      // tile rows staged per pass
-static_assert(BM == BN, "one thread column index serves both staged tiles");
-static_assert(BK % kRowsPerPass == 0, "whole passes over a K step");
+constexpr int kThreads = 512;             // four consumer warpgroups
+constexpr int kCols = 64;                 // columns of a block (wgmma N)
+constexpr int kBlockH = 256;              // H' of a block, 64 a warpgroup (wgmma M)
+constexpr int kUnitSteps = 5;             // k8 steps of a unit at most
+constexpr int kUnitRows = 8 * kUnitSteps;
+constexpr int kWStride = kBlockH + 8;     // floats a staged row of w: 8 (mod 32) banks on
+constexpr int kStage = kUnitRows * kWStride + kCols;  // floats of a stage: w's rows, xk[:, h]
+constexpr int kXStep = (kCols / 8) * 2 * 32;          // floats of one k8 step of X0
 
-__global__ void __launch_bounds__(kThreads)
-cin_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
-           const float* __restrict__ w, float* __restrict__ out,
-           int B, int H, int m, int d, int Hp) {
-    __shared__ __align__(16) float Ws[BK][BM];
-    __shared__ __align__(16) float Zs[BK][BN];
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// A wgmma descriptor of a no-swizzle K-major tile: core matrices of 8 rows
+// x 16 bytes, the next 4 of K 128 bytes on (LBO), the next 8 rows 256 (SBO).
+__device__ __forceinline__ uint64_t smem_desc(const float* p) {
+    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+           ((uint64_t)(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+// D (64 x 64, fp32) += A (64 x 8, tf32, registers) * B (8 x 64, tf32, shared
+// memory, K-major, no swizzle); scale_d == 0 starts D at zero.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+struct Unit {  // the rows of w one unit covers
+    int h, step0, steps;  // its h, first k8 step within h, and k8 steps
+};
+__device__ __forceinline__ Unit unit_of(int u, int n_units_h, int ms) {
+    Unit x;
+    x.h = u / n_units_h;
+    x.step0 = (u - x.h * n_units_h) * kUnitSteps;
+    x.steps = min(kUnitSteps, ms - x.step0);
+    return x;
+}
+
+// One unit into a stage, as one cp.async group: w's rows h*m + 8*step0 ..
+// (zeros past m) at the block's columns of H', and xk[n, h] for the block's
+// columns (zeros past N). VEC copies 16 bytes at a time (H' % 4 == 0 and w
+// 16-byte aligned).
+template <bool VEC>
+__device__ __forceinline__ void load_unit(float* stage, const float* __restrict__ w,
+                                          const float* __restrict__ xk, Unit x, int m, int Hp,
+                                          int hp0, int H, int d, long long col0, long long N) {
+    constexpr int kPerRow = VEC ? kBlockH / 4 : kBlockH;
+    const int rows = 8 * x.steps;
+    const int hp_n = min(kBlockH, Hp - hp0);
+    for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
+        const int r = i / kPerRow, c = i % kPerRow;
+        const int mm = 8 * x.step0 + r;
+        const bool valid = mm < m && (VEC ? 4 * c : c) < hp_n;
+        const float* src = valid ? w + ((long long)x.h * m + mm) * Hp + hp0 + (VEC ? 4 * c : c) : w;
+        if (VEC)
+            cp_async16(stage + r * kWStride + 4 * c, src, valid);
+        else
+            cp_async4(stage + r * kWStride + c, src, valid);
+    }
+    if (threadIdx.x < kCols) {
+        const long long n = col0 + threadIdx.x;
+        const bool valid = n < N;
+        const long long bb = valid ? n / d : 0;
+        cp_async4(stage + kUnitRows * kWStride + threadIdx.x,
+                  valid ? xk + (bb * H + x.h) * d + (n - bb * d) : xk, valid);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+cin_tc_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
+              const float* __restrict__ w, float* __restrict__ out, int B, int H, int m, int d,
+              int Hp, int ks) {
+    extern __shared__ float4 smem_f4[];
+    const int ms = (m + 7) / 8;  // k8 steps of an h
+    const int n_units_h = (ms + kUnitSteps - 1) / kUnitSteps;
+    float* stages = reinterpret_cast<float*>(smem_f4);  // [2][kStage]
+    float* x_hi = stages + 2 * kStage;                  // [ms][kCols / 8][2][32]
+    float* x_lo = x_hi + ms * kXStep;
     const long long N = (long long)B * d;
-    const int K = H * m;
-    const int row0 = blockIdx.y * BM;
-    const long long col0 = (long long)blockIdx.x * BN;
-    const int tid = threadIdx.x;
+    const long long col0 = (long long)blockIdx.x * kCols;
+    const int hp0 = blockIdx.y * kBlockH;
+    const int hp_n = min(kBlockH, Hp - hp0);
+    const int h_begin = (int)((long long)H * blockIdx.z / ks);
+    const int h_end = (int)((long long)H * (blockIdx.z + 1) / ks);
+    const int u_begin = h_begin * n_units_h, u_end = h_end * n_units_h;
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
 
-    // staging: this thread's tile column lc, rows lk, lk + 4, ...
-    const int lc = tid % BN;
-    const int lk = tid / BN;
-    const long long n = col0 + lc;
-    const bool n_ok = n < N;
-    const long long b = n_ok ? n / d : 0;
-    const int dd = n_ok ? (int)(n - b * d) : 0;
-    const float* xk_col = xk + b * H * d + dd;
-    const float* x0_col = x0 + b * m * d + dd;
-    const bool w_ok = row0 + lc < Hp;
+    if (u_begin < u_end)
+        load_unit<VEC>(stages, w, xk, unit_of(u_begin, n_units_h, ms), m, Hp, hp0, H, d, col0, N);
 
-    // compute: this thread's rows tr*4 .. +3 and columns tc*4 .. +3
-    const int tr = tid / (BN / TN);
-    const int tc = tid % (BN / TN);
+    // ---- B = X0 (hi, lo), once: element (column c, m') ---------------------
+    for (int i = threadIdx.x; i < ms * 8 * kCols; i += kThreads) {
+        const int c = i % kCols, mm = i / kCols;
+        const long long n = col0 + c;
+        float val = 0.f;
+        if (mm < m && n < N) {
+            const long long bb = n / d;
+            val = x0[(bb * m + mm) * d + (n - bb * d)];
+        }
+        const int off = (((mm / 8) * (kCols / 8) + c / 8) * 2 + (mm % 8) / 4) * 32 +
+                        (c % 8) * 4 + mm % 4;
+        uint32_t hi, lo;
+        split(val, hi, lo);
+        x_hi[off] = __uint_as_float(hi);
+        x_lo[off] = __uint_as_float(lo);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for wgmma's reads
 
-    float acc[TM][TN] = {};
-    for (int k0 = 0; k0 < K; k0 += BK) {
+    // this thread's rows of H': hw + warp*16 + g (+ 8) of the block's
+    const int hw = wg * 64;
+    const int row = hw + warp * 16 + g;
+    const bool busy = hw < hp_n;  // the same for the whole warpgroup
+    float acc[32], part[32];
 #pragma unroll
-        for (int r = 0; r < BK; r += kRowsPerPass) {
-            const int kk = lk + r;
-            const int k = k0 + kk;
-            float wv = 0.f, zv = 0.f;
-            if (k < K) {
-                if (w_ok) wv = w[(long long)k * Hp + row0 + lc];
-                if (n_ok) {
-                    const int h = k / m;
-                    zv = xk_col[(long long)h * d] * x0_col[(long long)(k - h * m) * d];
-                }
+    for (int i = 0; i < 32; ++i) acc[i] = part[i] = 0.f;
+
+    for (int u = u_begin; u < u_end; ++u) {
+        const Unit x = unit_of(u, n_units_h, ms);
+        const float* st = stages + ((u - u_begin) & 1) * kStage;
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        __syncthreads();  // unit u staged (and X0 made); every warp is done with unit u - 1
+        if (u + 1 < u_end)
+            load_unit<VEC>(stages + ((u + 1 - u_begin) & 1) * kStage, w, xk,
+                           unit_of(u + 1, n_units_h, ms), m, Hp, hp0, H, d, col0, N);
+        if (!busy) continue;
+        // ---- A = W_h^T fragments: rows row, row + 8; k 8s + t, 8s + t + 4 -------
+        uint32_t ah[kUnitSteps][4], al[kUnitSteps][4];
+#pragma unroll
+        for (int s = 0; s < kUnitSteps; ++s) {
+            if (s < x.steps) {
+                const float* lo_k = st + (8 * s + t) * kWStride + row;
+                const float* hi_k = lo_k + 4 * kWStride;
+                split(lo_k[0], ah[s][0], al[s][0]);
+                split(lo_k[8], ah[s][1], al[s][1]);
+                split(hi_k[0], ah[s][2], al[s][2]);
+                split(hi_k[8], ah[s][3], al[s][3]);
             }
-            Ws[kk][lc] = wv;
-            Zs[kk][lc] = zv;
         }
-        __syncthreads();
+        // ---- P_h (+)= W_h^T X0 over this unit: lo*hi, hi*lo, hi*hi ----------
+        wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            const float4 a = *reinterpret_cast<const float4*>(&Ws[kk][tr * TM]);
-            const float4 z = *reinterpret_cast<const float4*>(&Zs[kk][tc * TN]);
-            const float av[TM] = {a.x, a.y, a.z, a.w};
-            const float zv[TN] = {z.x, z.y, z.z, z.w};
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], zv[j], acc[i][j]);
+        for (int s = 0; s < kUnitSteps; ++s) {
+            if (s < x.steps) {
+                const uint64_t dh = smem_desc(x_hi + (x.step0 + s) * kXStep);
+                const uint64_t dl = smem_desc(x_lo + (x.step0 + s) * kXStep);
+                wgmma_tf32(part, al[s], dh, x.step0 > 0 || s > 0);
+                wgmma_tf32(part, ah[s], dl, 1);
+                wgmma_tf32(part, ah[s], dh, 1);
+            }
         }
-        __syncthreads();
-    }
+        wg_commit();
+        wg_wait_all();
+        fence_regs(part);
+        if (x.step0 + x.steps == ms) {  // the unit ends its h: acc += xk[n, h] * P_h
+            const float* xs = st + kUnitRows * kWStride;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-        const long long nj = col0 + tc * TN + j;
-        if (nj >= N) continue;
-        const long long bj = nj / d;
-        float* o = out + bj * Hp * d + (nj - bj * d);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            const int row = row0 + tr * TM + i;
-            if (row < Hp) o[(long long)row * d] = acc[i][j];
+            for (int i = 0; i < 32; i += 2) {
+                const int c = (i / 4) * 8 + 2 * t;
+                acc[i] = fmaf(xs[c], part[i], acc[i]);
+                acc[i + 1] = fmaf(xs[c + 1], part[i + 1], acc[i + 1]);
+            }
         }
     }
+
+    // acc[4j + e]: row row + 8 (e / 2) of H', column 8j + 2t + e % 2
+    if (!busy) return;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+        const int hp = hp0 + row + 8 * ((i / 2) % 2);
+        const long long n = col0 + (i / 4) * 8 + 2 * t + (i % 2);
+        if (n >= N || hp >= Hp) continue;
+        const long long bb = n / d;
+        float* dst = out + (bb * Hp + hp) * d + (n - bb * d);
+        if (ks > 1)
+            atomicAdd(dst, acc[i]);
+        else
+            *dst = acc[i];
+    }
+}
+
+int num_sms() {
+    static int n = 0;
+    if (n == 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+            n = 132;
+    }
+    return n;
+}
+
+template <bool VEC>
+int launch(const float* xk, const float* x0, const float* w, float* out, int B, int H, int m,
+           int d, int Hp, cudaStream_t stream) {
+    const int ms = (m + 7) / 8;
+    const int bytes = (2 * kStage + 2 * ms * kXStep) * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(cin_tc_kernel<VEC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    const long long N = (long long)B * d;
+    const long long tiles = ((N + kCols - 1) / kCols) * ((Hp + kBlockH - 1) / kBlockH);
+    // ks: the fewest waves of one block an SM per unit of work, 3% a split
+    // for its extra set-up and atomics
+    const int sms = num_sms();
+    int ks = 1;
+    double best = 1e300;
+    for (int k = 1; k <= 8 && k <= (H > 0 ? H : 1); ++k) {
+        const double cost = (double)((tiles * k + sms - 1) / sms) / k * (1.0 + 0.03 * (k - 1));
+        if (cost < best) best = cost, ks = k;
+    }
+    if (ks > 1) {
+        err = cudaMemsetAsync(out, 0, (size_t)N * Hp * sizeof(float), stream);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid((unsigned)((N + kCols - 1) / kCols), (unsigned)((Hp + kBlockH - 1) / kBlockH),
+                    (unsigned)ks);
+    cin_tc_kernel<VEC><<<grid, kThreads, bytes, stream>>>(xk, x0, w, out, B, H, m, d, Hp, ks);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// xk (B, H, d), x0 (B, m, d), w (H*m, Hp), out (B, Hp, d): contiguous fp32.
 extern "C" int cin_layer(const void* xk, const void* x0, const void* w, void* out,
                          int B, int H, int m, int d, int Hp, void* stream) {
-    const long long N = (long long)B * d;
-    const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((Hp + BM - 1) / BM));
-    cin_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)xk, (const float*)x0, (const float*)w, (float*)out, B, H, m, d, Hp);
-    return (int)cudaGetLastError();
+    const auto* a = (const float*)xk;
+    const auto* z = (const float*)x0;
+    const auto* ww = (const float*)w;
+    auto* o = (float*)out;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (Hp % 4 == 0 && (uintptr_t)w % 16 == 0)
+        return launch<true>(a, z, ww, o, B, H, m, d, Hp, st);
+    return launch<false>(a, z, ww, o, B, H, m, d, Hp, st);
 }

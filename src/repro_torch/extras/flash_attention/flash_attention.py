@@ -1,12 +1,24 @@
-"""Wrapper of the causal GQA flash-attention CUDA kernel
-(``csrc/flash_attention.cu``).
+"""Wrapper of the causal GQA flash-attention CUDA kernels
+(``csrc/flash_attention_tc.cu``, ``csrc/flash_attention.cu``).
 
 `flash_attention` replaces ``flash_attention`` (body ``_attn_kernel``) of
 ``src/repro/extras/flash_attention/flash_attention.py``: forward attention
 with a causal mask, an optional sliding window and an optional tanh softcap,
-over ``Sq == Skv``. One block owns 64 (position, query head) rows of one
-(batch, kv head) and walks the kv tiles they need with an fp32 online
-softmax; tiles wholly above the diagonal or outside the window are skipped.
+over ``Sq == Skv``. A block owns (position, query head) rows of one (batch,
+kv head) and walks the kv tiles they need with an fp32 online softmax;
+tiles wholly above the diagonal or outside the window are skipped.
+
+Two routes, chosen by `route` on dtype and shape alone:
+
+- ``"tc"`` (``flash_attention_tc``): bfloat16 with ``H`` and ``Hv``
+  multiples of 8 and at most 64 query heads a kv head. Both products on
+  the tensor cores (``wgmma``), every tile through TMA — whose descriptors
+  need each row stride a multiple of 16 bytes, hence the multiples of 8;
+  P is rounded to bf16 before P·V. An input off a 16-byte boundary (a
+  view at an odd offset) is copied to an aligned one first.
+- ``"fma"`` (``flash_attention``): everything else — float32, and bf16
+  head dims TMA cannot describe — on fp32 FMAs, exact up to summation
+  order.
 
 The layout is the JAX package's: ``q (B, S, Nq, H)``, ``k (B, S, Nkv, H)``,
 ``v (B, S, Nkv, Hv)``, no transposes. A CPU tensor goes to the plain version
@@ -30,7 +42,26 @@ FLASH_ATTENTION = CudaKernel(
     "flash_attention", "flash_attention",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I],
 )
+FLASH_ATTENTION_TC = CudaKernel(
+    "flash_attention_tc", "flash_attention_tc",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F],
+)
+ROUTES = {"tc": FLASH_ATTENTION_TC, "fma": FLASH_ATTENTION}
 MAX_HEAD_DIM = 256
+TC_MAX_GROUP = 64  # query heads a kv head: one position's heads fit a 64-row tile
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"tc"`` for bfloat16 with ``H``, ``Hv`` multiples of 8 and at most
+    `TC_MAX_GROUP` query heads a kv head, else ``"fma"``."""
+    H, Hv, G = q.shape[3], v.shape[3], q.shape[2] // max(k.shape[2], 1)
+    if q.dtype == torch.bfloat16 and H % 8 == 0 and Hv % 8 == 0 and G <= TC_MAX_GROUP:
+        return "tc"
+    return "fma"
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention(
@@ -46,10 +77,27 @@ def flash_attention(
     Hv) → (B, S, Nq, Hv)`` in q's dtype; ``scale`` defaults to ``H**-0.5``."""
     if on_cpu(q, k, v):
         return ref.mha_reference(q, k, v, scale=scale, window=window, softcap=softcap)
+    return launch(q, k, v, scale=scale, window=window, softcap=softcap)
+
+
+def launch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float | None = None,
+    window: int | None = None,
+    softcap: float | None = None,
+    via: str | None = None,
+) -> torch.Tensor:
+    """`flash_attention` on CUDA tensors, through `route`'s choice or, to
+    compare the two routes on one input, the route ``via`` names: ``"fma"``
+    takes every input the kernels take, ``"tc"`` only those `route` sends
+    to it."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check(t, name, q.dtype, 4)
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        check(t, what, q.dtype, 4)
     B, S, Nq, H = q.shape
     Bk, Skv, Nkv, Hk = k.shape
     if v.shape[:3] != k.shape[:3] or Bk != B or Hk != H:
@@ -68,10 +116,21 @@ def flash_attention(
         raise ValueError(f"softcap {softcap}: must be above 0")
     if S * (Nq // Nkv) >= 2**31:
         raise ValueError(f"{S} positions × {Nq // Nkv} heads a group: over the int32 row count")
+    name = route(q, k, v) if via is None else via
+    if name not in ROUTES:
+        raise ValueError(f"route {name!r}: one of {sorted(ROUTES)}")
+    if name == "tc" and route(q, k, v) != "tc":
+        raise ValueError(f"the tensor-core route does not take {q.dtype} with H {H}, Hv {Hv}, "
+                         f"{Nq // Nkv} heads a kv head")
     out = torch.empty((B, S, Nq, Hv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else H**-0.5
+    if name == "tc":
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        FLASH_ATTENTION_TC(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Nq,
+                           Nkv, H, Hv, float(scale), window or 0, float(softcap or 0.0))
+        return out
     vec = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)) and H % 4 == 0 and Hv % 4 == 0
     FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Nq, Nkv,
                     H, Hv, float(scale), window or 0, float(softcap or 0.0),

@@ -2,10 +2,13 @@
 
 `cin_layer` replaces ``cin_layer`` of ``src/repro/kernels/cin/cin.py``.
 A CPU tensor goes to the plain version (`repro_torch.kernels.cin.ref`); a
-CUDA tensor launches the kernel or raises. The kernel is an fp32 GEMM
-``out[h', (b, d)] = Σ_z w[z, h'] · Z[z, (b, d)]`` whose operand
-``Z = xk ⊗ x0`` is generated tile by tile in shared memory and never
-reaches device memory; its grid is computed in the C entry point.
+CUDA tensor launches the kernel or raises. The kernel never forms
+``z = xk ⊗ x0``: for each ``h`` it takes ``P_h = w_hᵀ · x0`` (``K = m``) on
+the tensor cores through TF32 ``wgmma`` in split TF32 (each operand as a
+TF32 high part and its remainder, three products a term: fp32-level
+accuracy) and adds ``xk[:, h] · P_h`` in fp32; its grid is computed in the C
+entry point. It keeps ``x0``'s slice of its columns in shared memory for
+the whole run, so it takes at most `MAX_FIELDS` fields ``m``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 CIN = CudaKernel("cin", "cin_layer", [_P, _P, _P, _P, _I, _I, _I, _I, _I])
+MAX_FIELDS = 104  # the x0 slice (hi and lo) beside two stages of w in 227 KB
 
 
 def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -35,6 +39,8 @@ def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tens
         raise ValueError(f"x0 {tuple(x0.shape)} does not match xk {tuple(xk.shape)}")
     if w.shape[0] != H * m:
         raise ValueError(f"w has {w.shape[0]} rows, expected H·m = {H}·{m}")
+    if m > MAX_FIELDS:
+        raise ValueError(f"x0 has {m} fields: the kernel takes at most {MAX_FIELDS}")
     out = torch.empty((B, Hp, d), dtype=torch.float32, device=xk.device)
     if out.numel():
         CIN(xk.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, m, d, Hp)

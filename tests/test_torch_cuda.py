@@ -130,10 +130,16 @@ def test_candidate_filter(dev, E):
 
 
 @pytest.mark.parametrize("B,H,m,d,Hp", [(3, 5, 4, 6, 7), (512, 39, 39, 10, 200),
-                                        (64, 200, 39, 10, 200), (5, 3, 70, 1, 130)])
+                                        (64, 200, 39, 10, 200), (5, 3, 70, 1, 130),
+                                        (50, 7, 13, 3, 300),      # H' over 256: two blocks of H'
+                                        (700, 10, 9, 1, 64),      # d = 1
+                                        (3999, 20, 39, 10, 200),  # 64-column tiles, N ragged
+                                        (61, 200, 39, 10, 200),   # 32-column tiles, N ragged
+                                        (40, 9, 104, 2, 12)])     # the most fields it takes
 def test_cin_layer(dev, B, H, m, d, Hp):
-    """fp32 FMA in another order over up to H·m terms: held to
-    ``max|kernel - plain| <= 1e-4 · max|plain|`` with TF32 off."""
+    """Split TF32 on the tensor cores (fp32-level accuracy) over up to H·m
+    terms in another order: held to ``max|kernel - plain| <= 1e-4 ·
+    max|plain|`` with TF32 off for the plain version."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(B + H)
     args = (on(dev, rng.normal(size=(B, H, d)).astype(np.float32)),
@@ -298,6 +304,23 @@ def test_extras_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 # ---------------------------------------------------------- flash_attention
+class route_counter:
+    """The launch counts of both `flash_attention` routes now; `check`
+    asserts that ``name``'s moved by one and the other's not at all."""
+
+    def __init__(self, name):
+        from repro_torch.extras.flash_attention import flash_attention as fa
+
+        self.kernels = {r: fa.ROUTES[r].symbol for r in fa.ROUTES}
+        self.name = name
+        self.before = {r: cuda.launch_counts()[sym] for r, sym in self.kernels.items()}
+
+    def check(self):
+        for r, sym in self.kernels.items():
+            want = self.before[r] + (1 if r == self.name else 0)
+            assert cuda.launch_counts()[sym] == want, (r, self.name)
+
+
 @pytest.mark.parametrize("B,S,Nq,Nkv,H,Hv,window,softcap", [
     (2, 200, 8, 1, 256, 256, None, None),    # gemma's heads, S not a multiple of 64
     (1, 1000, 8, 1, 256, 256, 100, 30.0),
@@ -318,11 +341,11 @@ def test_flash_attention(dev, B, S, Nq, Nkv, H, Hv, window, softcap, dtype):
     rng = np.random.default_rng(S * 7 + H)
     q, k, v = (on(dev, rng.normal(size=sh).astype(np.float32)).to(dtype)
                for sh in ((B, S, Nq, H), (B, S, Nkv, H), (B, S, Nkv, Hv)))
-    before = cuda.launch_counts()["flash_attention"]
+    moved = route_counter(fa.route(q, k, v))
     got = get_kernels("cuda").flash_attention(q, k, v, window=window, softcap=softcap)
     want = mha_reference(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
-    assert cuda.launch_counts()["flash_attention"] == before + 1
+    moved.check()
     assert got.dtype == dtype and got.shape == want.shape and torch.isfinite(got).all()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     scale = want.float().abs().amax(dim=-1, keepdim=True)
@@ -332,6 +355,67 @@ def test_flash_attention(dev, B, S, Nq, Nkv, H, Hv, window, softcap, dtype):
     want = mha_reference(q, k, v, scale=0.05, window=window, softcap=softcap)
     scale = want.float().abs().amax(dim=-1, keepdim=True)
     assert ((got.float() - want.float()).abs() <= tol * scale).all()
+
+
+@pytest.mark.parametrize("B,S,Nq,Nkv,H,Hv,window,softcap,route", [
+    (1, 15, 8, 1, 256, 256, None, None, "tc"),     # a block is 16 positions at G = 8: -1
+    (1, 16, 8, 1, 256, 256, None, None, "tc"),
+    (1, 17, 8, 1, 256, 256, None, 30.0, "tc"),     # +1, softcap
+    (1, 63, 8, 1, 256, 256, None, None, "tc"),     # a K/V tile is 64 keys: -1, +1
+    (1, 65, 8, 1, 256, 256, 7, None, "tc"),
+    (2, 127, 1, 1, 64, 64, None, None, "tc"),      # G = 1: 128 positions a block
+    (1, 129, 2, 2, 64, 64, None, None, "tc"),
+    (1, 130, 3, 1, 96, 96, None, None, "tc"),      # G = 3: 63 of a tile's 64 rows
+    (1, 100, 16, 1, 128, 128, 33, 30.0, "tc"),     # G = 16
+    (1, 300, 8, 1, 256, 64, 1, None, "tc"),        # Hv != H, the diagonal only
+    (1, 200, 8, 2, 128, 256, 1000, None, "tc"),    # window past S, Hv > H
+    (1, 70, 4, 1, 40, 24, 20, 50.0, "tc"),         # head dims not multiples of 16
+    (1, 70, 4, 2, 8, 8, None, None, "tc"),
+    (1, 70, 4, 2, 30, 30, None, None, "fma"),      # 60-byte rows: no TMA descriptor
+    (1, 70, 4, 2, 20, 36, 9, None, "fma"),
+    (1, 40, 128, 1, 64, 64, None, None, "fma"),    # 128 heads a kv head: over a tile
+])
+def test_flash_attention_routes(dev, B, S, Nq, Nkv, H, Hv, window, softcap, route):
+    """bf16 edges of the two routes: the tensor-core route at the packed-row
+    tile's and the K/V tile's edges, G 1, 3, 8, 16, head dims 8-256, Hv !=
+    H, window 1 and past S, softcap; the FMA route for shapes TMA cannot
+    describe. Each case asserts which route's counter moved; each output row
+    within ``2e-2 ·`` its max|plain|."""
+    from repro_torch.extras.flash_attention import flash_attention as fa
+    from repro_torch.extras.flash_attention.ref import mha_reference
+
+    rng = np.random.default_rng(S * 13 + H + Nq)
+    q, k, v = (on(dev, rng.normal(size=sh).astype(np.float32)).to(torch.bfloat16)
+               for sh in ((B, S, Nq, H), (B, S, Nkv, H), (B, S, Nkv, Hv)))
+    assert fa.route(q, k, v) == route
+    moved = route_counter(route)
+    got = fa.flash_attention(q, k, v, window=window, softcap=softcap)
+    want = mha_reference(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    moved.check()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    scale = want.float().abs().amax(dim=-1, keepdim=True)
+    assert ((got.float() - want.float()).abs() <= 2e-2 * scale).all()
+
+
+def test_flash_attention_tc_takes_unaligned_views(dev):
+    """Views that start off a 16-byte boundary take the tensor-core route
+    (copied to aligned storage first): the same output as aligned copies."""
+    from repro_torch.extras.flash_attention import flash_attention as fa
+
+    rng = np.random.default_rng(5)
+    shapes = ((1, 40, 8, 256), (1, 40, 1, 256), (1, 40, 1, 256))
+    views = []
+    for sh in shapes:
+        flat = on(dev, rng.normal(size=int(np.prod(sh)) + 1).astype(np.float32)).to(torch.bfloat16)
+        views.append(flat[1:].view(sh))
+    assert all(t.data_ptr() % 16 for t in views)
+    moved = route_counter("tc")
+    got = fa.flash_attention(*views)
+    torch.cuda.synchronize()
+    moved.check()
+    assert torch.equal(got, fa.flash_attention(*(t.clone() for t in views)))
 
 
 def test_lm_on_card_matches_the_cpu(dev):
@@ -392,3 +476,5 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
         fa.flash_attention(q, kv, kv, softcap=-1.0)
     with pytest.raises(ValueError, match="several devices"):
         fa.flash_attention(q, kv.cpu(), kv)
+    with pytest.raises(ValueError, match="tensor-core route does not take"):
+        fa.launch(q, kv, kv, via="tc")
