@@ -1,7 +1,6 @@
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py                      # every phase, one card
-    python3 chip_smoke.py --only recsys,lm     # those phases (recsys, gnn, lm) alone
 
 Phases (each prints one line or more; any failure exits non-zero, and the
 result lines are printed only when every phase passed):
@@ -50,7 +49,9 @@ result lines are printed only when every phase passed):
      beside it). Each CIN layer at serve_p99 and the logits are held to the
      plain versions within ``1e-4 · max|plain|``; at serve_bulk each layer's
      and the logits' first 4,096 rows are; the smoke config gives the same
-     logits on card and CPU.
+     logits on card and CPU. Each serve_p99 layer runs twice with identical
+     bits, and is timed with its ``h`` range in 1 to 6 parts, each held
+     within the same bound (the times behind ``cin.splits``' cost).
 
   9. gnn — an ogbn-products-shaped R-MAT (2,449,029 nodes, 30,929,570
      undirected draws symmetrized, seed 0; no cut of scale) served through
@@ -708,11 +709,25 @@ def row_scale(want: torch.Tensor) -> torch.Tensor:
     return r.clamp_min(r.median())
 
 
+def cin_parts(xk, x0, w, ks: int) -> torch.Tensor:
+    """``cin_layer``'s kernel called directly with the ``h`` range in ``ks``
+    parts, whatever ``splits`` would choose: the times behind its cost."""
+    from repro_torch.kernels.cin import cin
+
+    (B, H, d), m, Hp = xk.shape, x0.shape[1], w.shape[1]
+    out = torch.empty((B, Hp, d), dtype=torch.float32, device=xk.device)
+    part = torch.empty((ks, B, Hp, d) if ks > 1 else (0,), dtype=torch.float32, device=xk.device)
+    cin.CIN(xk.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, m,
+            d, Hp, ks)
+    return out
+
+
 def phase_recsys(dev) -> list[dict]:
     from repro_torch.configs import xdeepfm
     from repro_torch.core.backend import get_kernels
     from repro_torch.data.pipeline import recsys_batch
     from repro_torch.kernels import cuda
+    from repro_torch.kernels.cin.cin import splits
     from repro_torch.models.recsys import XDeepFM, embedding_bag
     from repro_torch.train.step import make_serve_fns
 
@@ -800,6 +815,18 @@ def phase_recsys(dev) -> list[dict]:
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, einsum {lib_ms:.4f} ms, TF32 "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), fp32 bound {fp32_ms:.4f} "
                 f"ms, {work('cin_layer', args, {})[1] / ms / 1e9:.2f} TFLOP/s")
+            # the same bits at every run; the time at each count of h parts
+            if not torch.equal(got, cuda_k.cin_layer(*args)):
+                fail(f"CIN layer {i} at serve_p99: two runs of the kernel differ")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            by_ks = {}
+            for ks in (*range(1, 7), *range(6, 0, -1)):
+                rel_err(cin_parts(*args, ks), want, f"CIN layer {i} at serve_p99 in {ks} parts")
+                by_ks.setdefault(ks, []).append(time_ms(lambda: cin_parts(*args, ks)))
+            log(f"[recsys] CIN layer {i} serve_p99 by parts of h (ks: ms, ascending then "
+                f"descending), each within 1e-4, two runs bit-identical: "
+                f"{ {k: [round(t, 4) for t in v] for k, v in by_ks.items()} }; "
+                f"splits() chooses {splits(B * d, W.shape[1], H, sms)} on {sms} SMs")
             layer_rows.append(row)
             p99_cin_ms += ms
             xk = want
@@ -1142,6 +1169,21 @@ def plain_float64():
     return PlainFloat64()
 
 
+def fma_route(q, k, v, *, scale=None, window=None, softcap=None) -> torch.Tensor:
+    """``flash_attention``'s FMA kernel called directly, on a call `route`
+    sends to the tensor cores: its time beside the tensor-core route's on
+    the served call."""
+    from repro_torch.extras.flash_attention import flash_attention as fa
+
+    (B, S, Nq, H), Nkv, Hv = q.shape, k.shape[2], v.shape[3]
+    out = torch.empty((B, S, Nq, Hv), dtype=q.dtype, device=q.device)
+    vec = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)) and H % 4 == 0 and Hv % 4 == 0
+    fa.FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Nq, Nkv,
+                       H, Hv, float(scale if scale is not None else H**-0.5), window or 0,
+                       float(softcap or 0.0), int(q.dtype == torch.bfloat16), int(vec))
+    return out
+
+
 def own_row_scale(want: torch.Tensor) -> torch.Tensor:
     """Each row's (last axis) own largest |value|."""
     return want.abs().amax(dim=-1, keepdim=True)
@@ -1336,7 +1378,7 @@ def phase_lm(dev) -> list[dict]:
     q, k, v, kw = rec.args[0]
     del rec
     ms = time_ms(lambda: cuda_k.flash_attention(q, k, v, **kw))
-    fma_ms = time_ms(lambda: fa.launch(q, k, v, via="fma", **kw), reps=3)
+    fma_ms = time_ms(lambda: fma_route(q, k, v, **kw), reps=3)
     plain_ms = time_ms(lambda: mha_reference(q, k, v, **kw), reps=5)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1454,17 +1496,7 @@ def phase_lm(dev) -> list[dict]:
 
 
 # ------------------------------------------------------------------- main
-PARTIAL = {"recsys": phase_recsys, "gnn": phase_gnn, "lm": phase_lm}
-
-
 def main() -> None:
-    only = None
-    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
-        only = sys.argv[2].split(",")
-        if not set(only) <= set(PARTIAL):
-            fail(f"--only takes a comma-separated subset of {sorted(PARTIAL)}")
-    elif len(sys.argv) > 1:
-        fail(f"usage: {sys.argv[0]} [--only {','.join(PARTIAL)}]")
     name, smi = phase_device()
     from repro_torch.api import GraphSession
     from repro_torch.graphstore import generators
@@ -1473,14 +1505,6 @@ def main() -> None:
 
     phase_build()
     dev = torch.device("cuda")
-    if only is not None:  # a partial run: those phases, their rows, no result line
-        rows = []
-        for phase in only:
-            rows += PARTIAL[phase](dev)
-            torch.cuda.empty_cache()
-        print(json.dumps({"kernels": rows}), flush=True)
-        log(f"[partial] phases {only} passed; no result line (a whole run prints it)")
-        return
 
     # ---- the graph (set-up: made on the host from the seed) ----------------
     t0 = time.perf_counter()

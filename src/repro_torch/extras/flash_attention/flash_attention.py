@@ -88,12 +88,8 @@ def launch(
     scale: float | None = None,
     window: int | None = None,
     softcap: float | None = None,
-    via: str | None = None,
 ) -> torch.Tensor:
-    """`flash_attention` on CUDA tensors, through `route`'s choice or, to
-    compare the two routes on one input, the route ``via`` names: ``"fma"``
-    takes every input the kernels take, ``"tc"`` only those `route` sends
-    to it."""
+    """`flash_attention` on CUDA tensors, through the kernel `route` names."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q: expected float32 or bfloat16, got {q.dtype}")
     for what, t in (("q", q), ("k", k), ("v", v)):
@@ -116,17 +112,11 @@ def launch(
         raise ValueError(f"softcap {softcap}: must be above 0")
     if S * (Nq // Nkv) >= 2**31:
         raise ValueError(f"{S} positions × {Nq // Nkv} heads a group: over the int32 row count")
-    name = route(q, k, v) if via is None else via
-    if name not in ROUTES:
-        raise ValueError(f"route {name!r}: one of {sorted(ROUTES)}")
-    if name == "tc" and route(q, k, v) != "tc":
-        raise ValueError(f"the tensor-core route does not take {q.dtype} with H {H}, Hv {Hv}, "
-                         f"{Nq // Nkv} heads a kv head")
     out = torch.empty((B, S, Nq, Hv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else H**-0.5
-    if name == "tc":
+    if route(q, k, v) == "tc":
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
         FLASH_ATTENTION_TC(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Nq,
                            Nkv, H, Hv, float(scale), window or 0, float(softcap or 0.0))

@@ -82,6 +82,18 @@ def test_cin_layer(fn, shape):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("N,Hp,H,want", [(5120, 200, 200, 3),       # serve_p99: 80 tiles
+                                         (2621440, 200, 200, 1),    # serve_bulk
+                                         (8448, 16, 2, 1),          # 132 tiles: one wave
+                                         (610, 200, 200, 8),        # 10 tiles: the most parts
+                                         (70, 12, 3, 3)])           # no more parts than h
+def test_cin_splits_fill_the_card(N, Hp, H, want):
+    """The CUDA kernel's parts of the h range on a 132-SM card."""
+    from repro_torch.kernels.cin.cin import splits
+
+    assert splits(N, Hp, H, 132) == want
+
+
 def test_cin_layer_index_is_h_major():
     # one nonzero weight row z = h*m + m' picks xk[:, h] * x0[:, m']
     B, H, m, d = 2, 3, 4, 5
