@@ -20,16 +20,27 @@ result lines are printed only when every phase passed):
      each of the matcher's five kernels must be > 0. Every returned row is
      checked to be a label-preserving injective embedding of its query in
      the graph. Each query then runs three more times, uncounted, for its
-     median wall and stage times past first-call warm-up;
+     median wall and stage times past first-call warm-up, and the explore
+     stage's median ms per exploration round (a round launches
+     ``stwig_expand`` once and ``bitset_build`` once for all its columns);
+     one repeat is traced with ``torch.profiler`` (device time, busy share,
+     top kernels), a measurement only;
   4. the same queries and stream with ``kernels="torch"`` (the plain
      PyTorch versions) on the card must give identical rows; the inputs of
      each op's largest call there are kept for phase 5, and every
      ``stwig_expand`` and ``bitset_build`` call with its output for phase 6;
   5. kernels — each matcher kernel against its plain version on the card,
      on those main-path inputs and on small adversarial cases, bit for bit
-     (tolerance 0: all outputs are integers or flags); kernel and plain
-     times are CUDA-event medians of 10 runs after a warm-up;
-  6. ops — ``bitset_unpack`` on every binding bitset the main path built and
+     (tolerance 0: all outputs are integers or flags); ``stwig_expand``'s
+     include a 60,000-edge row over ~30 tiles, 10,000 empty rows, k = 16
+     with C = 1 and survivors straddling a tile boundary, ``bitset_build``'s
+     a round's 7 columns with negative ids. Kernel and plain times are
+     CUDA-event medians of 10 runs after a warm-up. ``stwig_expand``'s bound
+     counts the bytes it must read when it reads lazily (as
+     ``candidate_filter``'s does), the all-inputs figure printed beside it,
+     with the device time of each of its two kernels from ``torch.profiler``;
+  6. ops — ``bitset_unpack`` on every binding bitset the main path built
+     (each column of each ``bitset_build`` call) and
      ``candidate_filter`` on every (``stwig_expand`` call, child) of it, with
      the counts zeroed before and read after (each > 0): bit-exact against
      the plain versions, ``unpack(build(ids))`` equal to the built ids' bits,
@@ -293,11 +304,13 @@ def run_queries(session, queries, stream_q):
 
 def repeat_times(session, queries, reps: int = 3) -> list[str]:
     """Each query run ``reps`` more times after the counted run: the median
-    wall ms and the median of each stage, past first-call warm-up."""
-    report = []
+    wall ms, the median of each stage and the explore stage's median ms per
+    exploration round (one ``stwig_expand`` and one ``bitset_build`` each),
+    past first-call warm-up; last, the median of that over the queries."""
+    report, per_round = [], []
     for i, q in enumerate(queries):
         compiled = session.compile(q, max_matches=1024)
-        wall, stages = [], {}
+        wall, stages, explore = [], {}, []
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -306,9 +319,16 @@ def repeat_times(session, queries, reps: int = 3) -> list[str]:
             wall.append((time.perf_counter() - t0) * 1e3)
             for k, v in res.stats.stage_times.items():
                 stages.setdefault(k, []).append(v * 1e3)
+            explore.append(res.stats.stage_times["explore"] * 1e3 / sum(res.stats.rounds))
         st = {k: round(statistics.median(v), 3) for k, v in stages.items()}
+        per_round.append(statistics.median(explore))
         report.append(f"q{i} median of {reps} repeats: ms={statistics.median(wall):.3f} "
-                      f"(runs {[round(x, 3) for x in wall]}) stage_ms={st}")
+                      f"(runs {[round(x, 3) for x in wall]}) stage_ms={st} "
+                      f"explore_ms_per_round={per_round[-1]:.3f} over {sum(res.stats.rounds)} "
+                      f"rounds")
+    report.append(f"explore ms per round, median over the {len(queries)} queries: "
+                  f"{statistics.median(per_round):.3f} (each query's: "
+                  f"{[round(x, 3) for x in per_round]})")
     return report
 
 
@@ -322,7 +342,9 @@ def recording_kernels():
         def __init__(self):
             self.calls = {}
             self.expands = []  # (args, kw, cnt) of every stwig_expand call
-            self.builds = []   # ((ids, valid, nwords), words) of every bitset_build call
+            # ((ids, valid, nwords), words) of every bitset_build call: a
+            # round's (n, width) columns and their (width, nwords) bitsets
+            self.builds = []
 
         def _keep(self, op, size, args, kw):
             if size > self.calls.get(op, (-1,))[0]:
@@ -376,18 +398,24 @@ def adversarial_cases(dev):
     E, cap, n_total = 64, 5, 100
     indptr = np.zeros(cap + 2, np.int32)
     indptr[1:] = E
+    rng2 = np.random.default_rng(3)  # a round's 7 columns, negative ids too
+    bids2 = rng2.integers(-2 * n_bits, n_bits + 40, (500, 7)).astype(np.int32)
+    bids2[:4, 0] = [-1, -n_bits, -(2**31), 2**31 - 1]
     ka = np.array([0, 5, 5, 5, 5, 5, 5, 9], np.uint32)
     big = np.sort(rng.integers(0, 2**32, 64, dtype=np.uint64)).astype(np.uint32)
     big[-3:] = 0xFFFFFFFF
     return [
         ("bitset_lookup", (t(words), t(ids.astype(np.int32))), {}),
         ("bitset_build", (t(bids), t(rng.random(500) < 0.7), W), {}),
+        ("bitset_build", (t(bids2), t(rng2.random(500) < 0.7), W), {}),
         ("bitset_pack", (t(rng.random(4096) < 0.4),), {}),
         ("stwig_expand", (t(np.full((2, n_words(n_total + 1)), 0xFFFFFFFF, np.uint32)),
                           t(np.arange(E, dtype=np.int32)), t(np.full(E, 1, np.int32)),
                           t(indptr), t(np.ones(E, bool))),
          dict(child_labels=(1, 1), child_bound=(True, False), child_cap=3, cap=cap,
               n_total=n_total)),
+        skewed_expand_case(t, np.random.default_rng(1), k=16, C=1),
+        skewed_expand_case(t, np.random.default_rng(2), k=4, C=8),
         ("hash_join_probe", (t(ka), t(np.full((8, 1), 5, np.int32)), t(np.ones(8, bool)),
                              t(np.array([5], np.uint32)), t(np.array([[5]], np.int32)),
                              t(np.ones(1, bool))), dict(dup_cap=6)),
@@ -397,6 +425,33 @@ def adversarial_cases(dev):
                              t(rng.integers(0, 3, (25, 1)).astype(np.int32)),
                              t(np.ones(25, bool))), dict(dup_cap=4)),
     ]
+
+
+def skewed_expand_case(t, rng, k: int, C: int):
+    """``stwig_expand`` on a 60,000-edge row (~30 tiles), a run of 10,000
+    empty rows and a pad tail owned by the ghost row; the long row's
+    survivors for child 0 straddle a tile boundary at ranks C-1 | C."""
+    from repro_torch.kernels.bitset.ref import n_words
+    from repro_torch.kernels.stwig_expand.stwig_expand import TILE
+
+    n_total = 20000
+    deg = rng.integers(0, 3000, 500)
+    deg[7] = 60_000
+    deg = np.concatenate([deg[:100], np.zeros(10_000, deg.dtype), deg[100:]])
+    E = int(deg.sum()) + 13
+    indptr = np.concatenate([[0], np.cumsum(deg), [E]]).astype(np.int32)
+    labels = tuple(int(x) for x in rng.integers(0, 3, k))
+    lab = rng.integers(0, 3, E).astype(np.int32)
+    rok = rng.random(E) < 0.9
+    first = -(-(7 + int(indptr[7])) // TILE) * TILE - 7  # row 7's first edge of the next tile
+    lab[indptr[7]:first - C] = 3  # no child's label
+    lab[first - C:first + 1] = labels[0]
+    rok[first - C:first + 1] = True
+    return ("stwig_expand", (
+        t(rng.integers(0, 2**32, (k, n_words(n_total + 1)), dtype=np.uint32)),
+        t(rng.integers(0, n_total, E).astype(np.int32)), t(lab), t(indptr), t(rok)),
+        dict(child_labels=labels, child_bound=tuple(bool(i % 2) for i in range(k)),
+             child_cap=C, cap=len(deg), n_total=n_total))
 
 
 def max_abs_err(a, b) -> int:
@@ -417,16 +472,33 @@ def work(op, args, kw) -> tuple[int, float]:
         words, ids = args
         return nbytes(words, ids) + ids.numel(), 6.0 * ids.numel()
     if op == "bitset_build":
-        ids, valid, nwords = args
-        return nbytes(ids, valid) + 4 * nwords, 6.0 * ids.numel()
+        ids, valid, nwords = args  # ids (n,) or a round's (n, width) columns
+        width = ids.shape[1] if ids.dim() == 2 else 1
+        return nbytes(ids, valid) + 4 * width * nwords, 6.0 * ids.numel()
     if op == "bitset_pack":
         (mask,) = args
         return nbytes(mask) + mask.numel() // 8, 2.0 * mask.numel()
     if op == "stwig_expand":
+        # read lazily, as candidate_filter's entry counts: every root_ok and
+        # indptr, the labels of root_ok edges, the dst ids of edges whose
+        # label is a child's and, for a bound child, the bitset words its
+        # matches land in; all of cand and cnt written
         words_k, dst, lab, indptr, rok = args
         k, C, cap = words_k.shape[0], kw["child_cap"], kw["cap"]
+        ok = rok.bool()
+        n_rok = int(ok.sum())
+        match = torch.zeros_like(ok)
+        n_words = 0
+        for c, (label, bound) in enumerate(zip(kw["child_labels"], kw["child_bound"])):
+            m = ok & (lab == label)
+            match |= m
+            if bound:
+                w_idx = dst[m].long() >> 5
+                n_words += torch.unique(w_idx[(w_idx >= 0) & (w_idx < words_k.shape[1])]).numel()
+        n_match = int(match.sum())
         out = 4 * k * ((cap + 1) * C + cap)
-        return nbytes(words_k, dst, lab, indptr, rok) + out, 8.0 * k * dst.numel()
+        return (dst.numel() + nbytes(indptr) + 4 * n_rok + 4 * n_match + 4 * n_words + out,
+                dst.numel() + 2.0 * k * n_rok + 6.0 * k * n_match)
     if op == "hash_join_probe":
         ka, akeys, avalid, kb, bkeys, bvalid = args
         dup = kw["dup_cap"]
@@ -552,6 +624,15 @@ def phase_kernels(recorded, launches, dev) -> list[dict]:
             f"{len(cases[op])} adversarial case(s); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
             f"{work(op, args, kw)[0]} B), main-path launches {launches[op]}")
+        if op == "stwig_expand":
+            # the bound counted every input byte until the kernel read lazily
+            words_k, dst, lab, indptr, rok = args
+            k, C, cap = words_k.shape[0], kw["child_cap"], kw["cap"]
+            every = nbytes(words_k, dst, lab, indptr, rok) + 4 * k * ((cap + 1) * C + cap)
+            log(f"[kernels] stwig_expand: every input read once would be {every} B, "
+                f"{every / HBM_BYTES_PER_S * 1e3:.4f} ms; the call's kernels (plan_kernel: "
+                f"tile bounds and open rows' counts, emit_kernel: ranks and candidates): "
+                f"{profile_line(device_profile(lambda: cuda_k.stwig_expand(*args, **kw)))}")
     return rows
 
 
@@ -565,9 +646,14 @@ def phase_ops(recorder) -> list[dict]:
     cuda_k, plain = get_kernels("cuda"), get_kernels("torch")
     if not recorder.builds or not recorder.expands:
         fail("the main path recorded no bitset_build or stwig_expand call")
+    # one bitset a column of each bitset_build call (a round's columns)
+    bitsets = [(ids[:, p] if ids.dim() == 2 else ids, valid, nwords,
+                words[p] if words.dim() == 2 else words)
+               for (ids, valid, nwords), words in recorder.builds
+               for p in range(ids.shape[1] if ids.dim() == 2 else 1)]
     torch.cuda.synchronize()
     cuda.reset_launch_counts()
-    for (ids, valid, nwords), words in recorder.builds:
+    for ids, valid, nwords, words in bitsets:
         bits = cuda_k.bitset_unpack(words)
         if not torch.equal(bits, plain.bitset_unpack(words)):
             fail("bitset_unpack differs from its plain version on a main-path bitset")
@@ -624,8 +710,9 @@ def phase_ops(recorder) -> list[dict]:
     for op in ("bitset_unpack", "candidate_filter"):
         if counts[op] <= 0:
             fail(f"kernel {op} was never launched on its path")
-    log(f"[ops] bitset_unpack on {len(recorder.builds)} main-path bitsets: bit-exact, and "
-        f"unpack(build(ids)) is the built ids' set each time")
+    log(f"[ops] bitset_unpack on the {len(bitsets)} main-path bitsets of "
+        f"{len(recorder.builds)} bitset_build calls: bit-exact, and unpack(build(ids)) is "
+        f"each column's built ids' set")
     log(f"[ops] candidate_filter on {n_filter} (stwig_expand call, child) inputs: bit-exact; "
         f"per-root sums equal stwig_expand's exact counts for {n_free} unbound children "
         f"(all bits set) and {n_bound} bound ones ({n_bound - k} with the path's binding "
@@ -641,7 +728,7 @@ def phase_ops(recorder) -> list[dict]:
     if not torch.equal(cuda_k.candidate_filter(*dense), plain.candidate_filter(*dense)):
         fail("candidate_filter differs from its plain version (dense root_ok and labels)")
     rows = []
-    _, words = max(recorder.builds, key=lambda c: c[0][2])
+    words = max(bitsets, key=lambda b: b[2])[3]
     for op, args, what in (
         ("candidate_filter", (words_k[0], dst, lab, rok, label), "main-path input"),
         ("bitset_unpack", (words,), "main-path input"),
@@ -1531,7 +1618,9 @@ def main() -> None:
     for line in report:
         log(f"[main] {line}")
     log(f"[main] max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
-        f"launches { {k: counts[k] for k in MATCHER_KERNELS} }")
+        f"launches { {k: counts[k] for k in MATCHER_KERNELS} } (stwig_expand and "
+        f"bitset_build once a round each, the latter for all the round's columns; [ops] "
+        f"counts the columns)")
     for sym in MATCHER_KERNELS:
         if counts[sym] <= 0:
             fail(f"kernel {sym} was never launched on the main path")
@@ -1544,6 +1633,11 @@ def main() -> None:
     log(f"[main] every row of {len(queries)} queries + stream is a valid embedding")
     for line in repeat_times(session, queries):
         log(f"[main] {line}")
+    # where a repeat's time goes: the query with the most edges, traced once
+    i = max(range(len(queries)), key=lambda j: len(queries[j].edges))
+    compiled = session.compile(queries[i], max_matches=1024)
+    log(f"[main] q{i} repeat traced: "
+        f"{profile_line(device_profile(lambda: compiled.run(adaptive=False), reps=1))}")
 
     # ---- phase 4: the plain versions on the card, same rows ----------------
     recorder = recording_kernels()

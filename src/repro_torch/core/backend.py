@@ -143,7 +143,9 @@ class Kernels:
     def bitset_build(
         self, ids: torch.Tensor, valid: torch.Tensor, nwords: int
     ) -> torch.Tensor:
-        """Packed bitset from (possibly duplicated) masked ids."""
+        """Packed bitset from (possibly duplicated) masked ids: ``(n,)`` ids
+        → ``(nwords,)``; ``(n, width)`` ids (a round's columns, one
+        ``valid`` flag a row) → ``(width, nwords)``, one bitset a column."""
         return _bitset_ref.build_reference(ids, valid, nwords)
 
     # ------------------------------------------------------- exploration

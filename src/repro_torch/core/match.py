@@ -152,7 +152,7 @@ def match_stwig_shard(
         & root_mask[torch.clamp(g.edge_src, 0, cap - 1).long()]
         & (g.edge_src < cap)
     )
-    words_k = bind.words[list(spec.child_qnodes)].contiguous()
+    words_k = bind.words[list(spec.child_qnodes)]  # a gather: a new contiguous tensor
     cand_k, cnt_k = kern.stwig_expand(
         words_k,
         g.indices,
@@ -203,9 +203,7 @@ def match_stwig_shard(
     overflow = (n_rows > spec.rows_cap) | (cnt_k.amax() > C)
 
     # ---- step 5: binding contributions -------------------------------------
-    contrib = torch.stack(
-        [kern.bitset_build(cols[:, p].contiguous(), valid, W) for p in range(spec.width)]
-    )  # (width, W)
+    contrib = kern.bitset_build(cols, valid, W)  # (width, W), one bitset a column
 
     table = STwigTable(
         cols=cols, valid=valid, n_rows=n_rows, n_roots=n_roots, overflow=overflow

@@ -4,7 +4,8 @@
 //   bitset_lookup  <- bitset_lookup (_lookup_kernel)
 //   bitset_pack    <- bitset_pack (_pack_kernel)
 //   bitset_build   <- the XLA bool scatter + bitset_pack pair that the TPU
-//                     backend runs for Kernels.bitset_build
+//                     backend runs for Kernels.bitset_build, for each of a
+//                     round's columns (src/repro/core/match.py's loop)
 //   bitset_unpack  <- bitset_unpack (_unpack_kernel)
 //   candidate_filter <- candidate_filter (_cand_filter_kernel)
 //
@@ -12,7 +13,11 @@
 // lookup: one thread per id, a coalesced id read, one 4-byte word gather
 // (the bitset is small enough to stay in L2) and a 1-byte store.
 // build: Hopper has a scatter-OR, so there is no bool lane array and no
-// pack pass: one thread per (id, valid) does atomicOr into the zeroed words.
+// pack pass. One call builds all `width` columns of a round's (n, width)
+// ids: cudaMemsetAsync zeroes the (width, nwords) words, then one thread per
+// (row, column) pair, reading the ids row-major and coalesced, does
+// atomicOr into its column's words. At ~2 MB a round it is bound by its
+// launch, so one launch a round replaces one a column.
 // pack: one warp per word, __ballot_sync gathers 32 bools into the word.
 // unpack: the output (32 bytes per word) is 8 times the input, so the
 // stores are what count: one thread per 4 bits writes its 4 bools as one
@@ -42,14 +47,15 @@ __global__ void lookup_kernel(const uint32_t* __restrict__ words, int n_words,
 }
 
 __global__ void build_kernel(const int32_t* __restrict__ ids,
-                             const uint8_t* __restrict__ valid, long long n,
-                             uint32_t* __restrict__ words, long long n_bits) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n || !valid[i]) return;
+                             const uint8_t* __restrict__ valid, long long n, int width,
+                             uint32_t* __restrict__ words, long long nwords) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // row i / width
+    if (i >= n * width || !valid[i / width]) return;
+    const long long n_bits = nwords * 32;
     long long id = ids[i];
     if (id < 0) id += n_bits;  // a negative index wraps once, as in JAX
     if (id < 0 || id >= n_bits) return;  // ... and what is still outside drops
-    atomicOr(&words[id >> 5], 1u << (id & 31));
+    atomicOr(&words[(i % width) * nwords + (id >> 5)], 1u << (id & 31));
 }
 
 __global__ void pack_kernel(const uint8_t* __restrict__ mask, long long n_words,
@@ -92,10 +98,13 @@ extern "C" int bitset_lookup(const void* words, int n_words, const void* ids,
     return (int)cudaGetLastError();
 }
 
-extern "C" int bitset_build(const void* ids, const void* valid, long long n,
-                            void* words, long long n_bits, void* stream) {
-    build_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)ids, (const uint8_t*)valid, n, (uint32_t*)words, n_bits);
+extern "C" int bitset_build(const void* ids, const void* valid, long long n, int width,
+                            void* words, long long nwords, void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(words, 0, (size_t)width * nwords * 4, s);
+    if (err != cudaSuccess || n * width == 0) return (int)err;
+    build_kernel<<<blocks_for(n * width), kThreads, 0, s>>>(
+        (const int32_t*)ids, (const uint8_t*)valid, n, width, (uint32_t*)words, nwords);
     return (int)cudaGetLastError();
 }
 

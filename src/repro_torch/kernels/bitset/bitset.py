@@ -10,7 +10,8 @@ tensor launches the kernel or raises.
     word, a ballot of its 32 lanes;
   * `bitset_build` replaces the TPU backend's XLA scatter + ``bitset_pack``
     pair — Hopper has ``atomicOr``, so one thread per id ORs its bit into
-    words the wrapper zeroed;
+    words the same call zeroed; given a round's ``(n, width)`` columns it
+    builds all ``width`` bitsets in that one call;
   * `bitset_unpack` replaces ``bitset_unpack`` of the same file — one
     thread per four bits, one 4-byte store of four bools;
   * `candidate_filter` replaces ``candidate_filter`` of the same file —
@@ -32,7 +33,7 @@ from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 LOOKUP = CudaKernel("bitset", "bitset_lookup", [_P, _I, _P, _L, _P])
-BUILD = CudaKernel("bitset", "bitset_build", [_P, _P, _L, _P, _L])
+BUILD = CudaKernel("bitset", "bitset_build", [_P, _P, _L, _I, _P, _L])
 PACK = CudaKernel("bitset", "bitset_pack", [_P, _L, _P])
 UNPACK = CudaKernel("bitset", "bitset_unpack", [_P, _L, _P])
 FILTER = CudaKernel("bitset", "candidate_filter", [_P, _I, _P, _P, _P, _L, _I, _P])
@@ -54,18 +55,21 @@ def bitset_lookup(words: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def bitset_build(ids: torch.Tensor, valid: torch.Tensor, nwords: int) -> torch.Tensor:
     """``(n,)`` int32 ids with ``(n,)`` bool validity → ``(nwords,)`` int32
     words with the valid ids' bits set (a negative id wraps once; an id
-    still out of range is dropped)."""
+    still out of range is dropped). ``(n, width)`` ids — a round's columns —
+    give ``(width, nwords)``: column ``p``'s bitset in row ``p``, one launch."""
     if on_cpu(ids, valid):
         return ref.build_reference(ids, valid, nwords)
-    check(ids, "ids", torch.int32, 1)
+    if ids.dim() not in (1, 2):
+        raise ValueError(f"ids: expected rank 1 or 2, got shape {tuple(ids.shape)}")
+    check(ids, "ids", torch.int32, ids.dim())
     check(valid, "valid", torch.bool, 1)
-    if valid.shape != ids.shape:
-        raise ValueError(f"valid {tuple(valid.shape)} != ids {tuple(ids.shape)}")
-    words = torch.zeros(nwords, dtype=torch.int32, device=ids.device)
-    if ids.numel():
-        BUILD(ids.data_ptr(), valid.data_ptr(), ids.numel(), words.data_ptr(),
-              nwords * ref.WORD_BITS)
-    return words
+    if valid.shape[0] != ids.shape[0]:
+        raise ValueError(f"valid {tuple(valid.shape)} does not match ids {tuple(ids.shape)}")
+    width = ids.shape[1] if ids.dim() == 2 else 1
+    words = torch.empty((width, nwords), dtype=torch.int32, device=ids.device)
+    if words.numel():
+        BUILD(ids.data_ptr(), valid.data_ptr(), ids.shape[0], width, words.data_ptr(), nwords)
+    return words if ids.dim() == 2 else words[0]
 
 
 def bitset_pack(mask: torch.Tensor) -> torch.Tensor:

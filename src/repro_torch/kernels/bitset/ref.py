@@ -92,7 +92,13 @@ def lookup_reference(words: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def build_reference(
     ids: torch.Tensor, valid: torch.Tensor, nwords: int
 ) -> torch.Tensor:
-    """A packed bitset of the valid ids (duplicates allowed)."""
+    """A packed bitset of the valid ids (duplicates allowed); ``(n, width)``
+    ids give ``(width, nwords)``, the 1-D version on each column."""
+    if ids.dim() == 2:
+        cols = [build_reference(ids[:, p], valid, nwords) for p in range(ids.shape[1])]
+        if not cols:
+            return torch.zeros((0, nwords), dtype=torch.int32, device=ids.device)
+        return torch.stack(cols)
     n_bits = nwords * WORD_BITS
     wrapped = torch.where(ids < 0, ids + n_bits, ids)
     keep = valid & (wrapped >= 0) & (wrapped < n_bits)

@@ -15,7 +15,6 @@ bits.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -30,7 +29,6 @@ MAX_SPLITS = 8
 SPLIT_COST = 0.03  # a split's extra set-up, partial stores and second pass, per split
 
 
-@functools.lru_cache(maxsize=None)
 def splits(N: int, Hp: int, H: int, sms: int) -> int:
     """Parts of the ``h`` range: the fewest waves of one block an SM per
     unit of work, each split past the first costing `SPLIT_COST` more
@@ -41,7 +39,6 @@ def splits(N: int, Hp: int, H: int, sms: int) -> int:
     return min(cost, key=cost.get)
 
 
-@functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 

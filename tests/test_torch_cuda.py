@@ -62,12 +62,15 @@ def test_bitset_lookup(dev, n):
     same("bitset_lookup", (on(dev, rng.integers(0, 2**32, W, dtype=np.uint32)), on(dev, ids)))
 
 
+@pytest.mark.parametrize("width", [0, 1, 2, 7], ids=["1-D", "w1", "w2", "w7"])
 @pytest.mark.parametrize("n", [5, 500, 1 << 18])
-def test_bitset_build_with_negative_ids(dev, n):
+def test_bitset_build_with_negative_ids(dev, n, width):
+    """1-D ids, and a round's (n, width) columns built in one launch."""
     rng = np.random.default_rng(n)
     nwords = 1024
-    ids = rng.integers(-2 * nwords * 32, nwords * 32 + 50, n).astype(np.int32)
-    ids[:2] = [-1, -(2**31)]
+    shape = (n, width) if width else (n,)
+    ids = rng.integers(-2 * nwords * 32, nwords * 32 + 50, shape).astype(np.int32)
+    ids.reshape(-1)[:2] = [-1, -(2**31)]
     same("bitset_build", (on(dev, ids), on(dev, rng.random(n) < 0.7), nwords))
 
 
@@ -77,23 +80,46 @@ def test_bitset_pack(dev, n_words_):
     same("bitset_pack", (on(dev, rng.random(32 * n_words_) < 0.4),))
 
 
-@pytest.mark.parametrize("k,C,max_deg", [(1, 3, 5), (3, 8, 200), (5, 4, 3000)])
+def straddle(lab, rok, indptr, r, C, label):
+    """Make row ``r``'s survivors for ``label`` straddle the first tile
+    boundary inside it at ranks C-1 | C: no survivor before the C edges
+    that end the tile, the next edge a survivor too. Row r's edge e is item
+    r + e of the merged sequence (e_begin = 0)."""
+    from repro_torch.kernels.stwig_expand.stwig_expand import TILE
+
+    first = -(-(r + int(indptr[r])) // TILE) * TILE - r  # the next tile's first edge
+    assert indptr[r] <= first - C and first < indptr[r + 1]
+    lab[indptr[r]:first - C] = 3  # no child's label
+    lab[first - C:first + 1] = label
+    rok[first - C:first + 1] = True
+
+
+@pytest.mark.parametrize("k,C,max_deg", [(1, 3, 5), (3, 8, 200), (5, 4, 3000),
+                                         (16, 1, 60_000), (4, 8, 60_000)])
 def test_stwig_expand(dev, k, C, max_deg):
+    """Random rows with a pad tail owned by the ghost row; the skewed cases
+    (max_deg 60,000) add a row of 60,000 edges over ~30 tiles, a run of
+    10,000 empty rows and survivors straddling a tile boundary at C-1 | C."""
     rng = np.random.default_rng(k)
     cap, n_total = 500, 20000
-    deg = rng.integers(0, max_deg, cap)
-    deg[7] = max_deg  # one long segment: several 32-edge chunks, counts past C
+    deg = rng.integers(0, min(max_deg, 3000), cap)
+    deg[7] = max_deg  # one long segment: counts past C
+    if max_deg > 3000:
+        deg = np.concatenate([deg[:100], np.zeros(10_000, deg.dtype), deg[100:]])
+        cap = len(deg)
     E = int(deg.sum()) + 13  # a pad tail owned by the ghost row
     indptr = np.concatenate([[0], np.cumsum(deg), [E]]).astype(np.int32)
     labels = tuple(int(x) for x in rng.integers(0, 3, k))
-    same("stwig_expand", (
-        on(dev, rng.integers(0, 2**32, (k, n_words(n_total + 1)), dtype=np.uint32)),
-        on(dev, rng.integers(0, n_total, E).astype(np.int32)),
-        on(dev, rng.integers(0, 3, E).astype(np.int32)),
-        on(dev, indptr),
-        on(dev, rng.random(E) < 0.9),
-    ), dict(child_labels=labels, child_bound=tuple(bool(i % 2) for i in range(k)),
-            child_cap=C, cap=cap, n_total=n_total))
+    words = rng.integers(0, 2**32, (k, n_words(n_total + 1)), dtype=np.uint32)
+    dst = rng.integers(0, n_total, E).astype(np.int32)
+    lab = rng.integers(0, 3, E).astype(np.int32)
+    rok = rng.random(E) < 0.9
+    if max_deg > 3000:
+        straddle(lab, rok, indptr, 7, C, labels[0])
+    same("stwig_expand", (on(dev, words), on(dev, dst), on(dev, lab), on(dev, indptr),
+                          on(dev, rok)),
+         dict(child_labels=labels, child_bound=tuple(bool(i % 2) for i in range(k)),
+              child_cap=C, cap=cap, n_total=n_total))
 
 
 @pytest.mark.parametrize("cap_a,cap_b,nk,dup", [(8, 1, 1, 6), (1000, 3000, 2, 16), (1 << 16, 1 << 14, 3, 64)])

@@ -16,6 +16,15 @@ versions they are held to there:
   Held to ``cin_layer_reference`` within ``1e-4 · max|plain|`` at xDeepFM's
   layer widths; one TF32 product alone is not.
 
+And the work split of ``csrc/stwig_expand.cu``, which has no arithmetic to
+round but a plan that must give every slot exactly once: rows' ends and
+edges merged and cut into tiles (Merrill & Garland's merge-path search of
+``indptr``), the survivor counts of the row still open at each tile's end,
+the carry a long row's owner takes from its earlier tiles, ranks from a
+prefix of the tile's survivor flags. Held bit for bit to
+``stwig_expand_reference`` on skewed graphs, with each output slot written
+exactly once.
+
 Inputs come from numpy seeds; the emulations live here, not in the port.
 """
 import numpy as np
@@ -25,6 +34,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.extras.flash_attention.ref import mha_reference  # noqa: E402
 from repro_torch.kernels.cin.ref import cin_layer_reference  # noqa: E402
+from repro_torch.kernels.stwig_expand.ref import stwig_expand_reference  # noqa: E402
+from repro_torch.kernels.stwig_expand.stwig_expand import TILE  # noqa: E402
 
 
 def attention_tc_mirror(q, k, v, *, scale=None, window=None, softcap=None, tile=64):
@@ -109,3 +120,157 @@ def test_cin_split_tf32_keeps_fp32_accuracy():
     err_one = (one_pass - want).abs().max().item() / scale
     assert err_split <= 1e-4, err_split
     assert err_one > 1e-4 > 10 * err_split, (err_one, err_split)
+
+
+def expand_tile_mirror(words_k, dst, lab, indptr, root_ok, *, child_labels, child_bound,
+                       child_cap, cap, n_total, tile):
+    """``csrc/stwig_expand.cu``'s two kernels in numpy, ``tile`` items a
+    tile: returns ``(cand, cnt, writes, bounds)``, ``writes`` counting the
+    stores to each slot of ``cand`` and ``bounds`` each tile boundary's
+    (rows ended, next edge)."""
+    E, k, C = dst.shape[0], len(child_labels), child_cap
+    at = np.clip(indptr.astype(np.int64), 0, E)  # Graph::at
+    surv = np.zeros((k, E), bool)                # Graph::survivors
+    in_range = (dst >= 0) & (dst < words_k.shape[1] * 32)
+    safe = np.where(in_range, dst, 0)
+    for c, (label, bound) in enumerate(zip(child_labels, child_bound)):
+        surv[c] = root_ok & (lab == label)
+        if bound:
+            surv[c] &= in_range & (((words_k[c][safe // 32] >> (safe % 32)) & 1) == 1)
+    e_begin = int(at[0])
+    n_edges = max(e_begin, int(at[cap + 1])) - e_begin
+    total = cap + 1 + n_edges
+    n_tiles = -(-(cap + 1 + E) // tile)
+
+    def merge_path(d):
+        lo, hi = max(d - n_edges, 0), min(d, cap + 1)
+        while lo < hi:
+            x = (lo + hi) // 2
+            if at[x + 1] - e_begin <= d - x - 1:
+                lo = x + 1
+            else:
+                hi = x
+        return lo, e_begin + d - lo
+
+    bounds = [merge_path(min(b * tile, total)) for b in range(n_tiles + 1)]
+    tail = np.zeros((n_tiles, k), np.int64)  # plan_kernel: the open row's survivors
+    for t in range(n_tiles):
+        (_, j0), (r1, j1) = bounds[t], bounds[t + 1]
+        if r1 <= cap:
+            tail[t] = surv[:, max(at[r1], j0):j1].sum(1)
+    cand = np.full((k, cap + 1, C), -1, np.int64)
+    cnt = np.full((k, cap), -1, np.int64)
+    writes = np.zeros((k, cap + 1, C), np.int64)
+    for t in range(n_tiles):  # emit_kernel
+        (i0, j0), (i1, j1) = bounds[t], bounds[t + 1]
+        if (i0, j0) == (i1, j1):
+            continue
+        n_own = i1 - i0
+        carry = np.zeros(k, np.int64)
+        if at[i0] < j0:
+            carry = tail[(i0 + at[i0] - e_begin) // tile:t].sum(0)
+        ends = at[i0 + 1:i1 + 1] - j0
+        ts = ends[-1] if n_own else 0
+        for c in range(k):
+            s = surv[c, j0:j1]
+            before = np.concatenate([[0], np.cumsum(s)])
+            if i1 <= cap:  # the open row's survivors of rank < C
+                el = np.nonzero(s[ts:])[0] + ts
+                rank = before[el] - before[ts] + (0 if n_own else carry[c])
+                keep = rank < C
+                cand[c, i1, rank[keep]] = dst[j0 + el[keep]]
+                writes[c, i1, rank[keep]] += 1
+            if not n_own:
+                continue
+            sl = np.append(dst[j0:j1][s], n_total)
+            cum = before[ends]
+            beg = np.concatenate([[0], cum[:-1]])
+            rows = np.arange(i0, i1)
+            n_row = cum - beg + np.where(rows == i0, carry[c], 0)
+            cnt[c, rows[rows < cap]] = n_row[rows < cap]
+            q = np.arange(C)[None, :] - np.where(rows == i0, carry[c], 0)[:, None]
+            mine = q >= 0
+            v = np.where(q < (cum - beg)[:, None],
+                         sl[np.clip(beg[:, None] + q, 0, len(sl) - 1)], n_total)
+            cand[c, i0:i1][mine] = v[mine]
+            writes[c, i0:i1][mine] += 1
+    return cand, cnt, writes, bounds
+
+
+def csr_case(rng, deg, *, k=2, C=4, n_labels=3, rok=0.9, pad=13, e_begin=0, n_total=5000):
+    """Rows of degrees ``deg`` (row ``cap`` = len(deg) is the ghost row with
+    a ``pad``-edge tail; ``e_begin`` edges before row 0 belong to no row),
+    random labels, ids, root candidacy and binding words."""
+    cap = len(deg)
+    E = e_begin + int(np.sum(deg)) + pad
+    indptr = np.concatenate([[e_begin], e_begin + np.cumsum(deg), [E]]).astype(np.int32)
+    words = rng.integers(0, 2**32, (k, -(-(n_total + 1) // 32)), dtype=np.uint32)
+    args = [words, rng.integers(0, n_total, E).astype(np.int32),
+            rng.integers(0, n_labels, E).astype(np.int32), indptr, rng.random(E) < rok]
+    kw = dict(child_labels=tuple(int(x) for x in rng.integers(0, n_labels, k)),
+              child_bound=tuple(bool(i % 2) for i in range(k)), child_cap=C, cap=cap,
+              n_total=n_total)
+    return args, kw
+
+
+def straddle_case(rng, tile, C=4):
+    """Row 0's survivors for child 0 straddle the first tile boundary at
+    ranks C-1 | C, row 1's for child 1 the next at C-2 | C-1."""
+    n0 = tile + 8
+    deg = np.array([n0, 2 * tile, 5, 0, 7])
+    args, kw = csr_case(rng, deg, k=2, C=C, rok=1.0)
+    lab = args[2]
+    lab[:] = 0
+    kw.update(child_labels=(1, 2), child_bound=(False, False))
+    lab[[*range(tile - C, tile), tile]] = 1  # edges at diagonals tile-C .. tile
+    # row 1's edge e sits at diagonal e + 1 (row 0's end comes first)
+    b = 2 * tile - 1
+    lab[[*range(b - (C - 1), b), b]] = 2
+    return args, kw
+
+
+def expand_cases():
+    rng = np.random.default_rng(30)
+    long_deg = rng.integers(0, 20, 300)
+    long_deg[5] = 50_000  # one row across ~25 tiles of the kernel's size
+    empty_deg = rng.integers(0, 6, 20_000) * (rng.random(20_000) < 0.5)
+    empty_deg[3_000:13_000] = 0  # a run of 10,000 empty rows
+    every = csr_case(rng, rng.integers(0, 300, 60), k=2, C=4, rok=1.0)
+    every[0][2][:] = 1  # every edge's label is the children's
+    every[1].update(child_labels=(1, 1), child_bound=(False, False))
+    return {
+        "long-row": (csr_case(rng, long_deg, k=3, C=8), TILE),
+        "long-row-small-tiles": (csr_case(rng, long_deg[:40], k=2, C=3), 256),
+        "empty-runs": (csr_case(rng, empty_deg, k=2, C=4, pad=0), 256),
+        "straddle": (straddle_case(rng, 32), 32),
+        "straddle-kernel-tile": (straddle_case(rng, TILE, C=8), TILE),
+        "k16-C1": (csr_case(rng, rng.integers(0, 40, 500), k=16, C=1, n_labels=4), 64),
+        "every-edge-survives": (every, 32),
+        "pad-tail-and-lead": (csr_case(rng, rng.integers(0, 9, 200), pad=300, e_begin=17), 32),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(expand_cases()))
+def test_stwig_expand_tile_plan(case):
+    ((words, dst, lab, indptr, rok), kw), tile = expand_cases()[case]
+    cand, cnt, writes, bounds = expand_tile_mirror(words, dst, lab, indptr, rok, tile=tile,
+                                                   **kw)
+    want_cand, want_cnt = stwig_expand_reference(
+        torch.from_numpy(words.view(np.int32)), torch.from_numpy(dst), torch.from_numpy(lab),
+        torch.from_numpy(indptr), torch.from_numpy(rok), **kw)
+    assert (writes == 1).all(), "a slot written other than exactly once"
+    np.testing.assert_array_equal(cand, want_cand.numpy())
+    np.testing.assert_array_equal(cnt, want_cnt.numpy())
+    # the boundaries are the merge path's: rows ended before diagonal d are
+    # those whose end item r + (its end edge - e_begin) lies before d
+    cap, E = kw["cap"], dst.shape[0]
+    at = np.clip(indptr.astype(np.int64), 0, E)
+    end_item = np.arange(cap + 1) + at[1:] - at[0]
+    for b, (row, edge) in enumerate(bounds):
+        d = min(b * tile, int(end_item[-1]) + 1)
+        assert row == np.searchsorted(end_item, d) and row + edge - at[0] == d
+    if case.startswith("long-row"):
+        r = int(np.argmax(np.diff(at)))
+        first = r + at[r] - at[0]
+        assert (first + at[r + 1] - at[r]) // tile - first // tile >= 5  # spans tiles
+        assert cnt[:, r].max() > kw["child_cap"]  # exact counts past C

@@ -1,0 +1,23 @@
+"""The port under the repo's architecture lint.
+
+``repro.analysis.staticcheck.archlint`` walks all of ``src/``, so the port
+is held to the same rules as the JAX package: no process-global
+``lru_cache`` state, packed-word arithmetic only under ``kernels/bitset/``,
+no unused imports, no orphan modules. This test reads the source tree only
+(no JAX tracing), so it runs in about two seconds.
+"""
+import pathlib
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.analysis.staticcheck import archlint  # noqa: E402
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_port_has_no_lint_finding():
+    found = [f for f in archlint.run(str(REPO_ROOT))
+             if f.path.startswith("src/repro_torch/")]
+    assert found == [], "\n".join(str(f) for f in found)

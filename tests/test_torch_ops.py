@@ -88,6 +88,28 @@ def test_bitset_build(kern, negative):
         assert bits[n_bits - 1] and bits[0]
 
 
+@pytest.mark.parametrize("kern", [PORT, CUDA], ids=["torch", "cuda-wrapper"])
+@pytest.mark.parametrize("width", [1, 3, 7])
+def test_bitset_build_columns(kern, width):
+    """A round's ``(n, width)`` columns in one call: each row of the result
+    is the JAX package's ``bitset_build`` of that column, negative and
+    out-of-range ids included."""
+    rng = np.random.default_rng(20 + width)
+    nwords = 16
+    n_bits = nwords * 32
+    ids = rng.integers(-2 * n_bits, n_bits + 40, (300, width)).astype(np.int32)
+    ids[:4, 0] = [-1, -n_bits, -(2**31), 2**31 - 1]
+    ids[4, :] = n_bits  # past the end in every column: dropped
+    valid = rng.random(300) < 0.7
+    valid[:5] = True
+    got = kern.bitset_build(t(ids), t(valid), nwords)
+    want = jnp.stack([JNP.bitset_build(jnp.asarray(ids[:, p]), jnp.asarray(valid), nwords)
+                      for p in range(width)])
+    same(got, want)
+    for p in range(width):  # and the port's own 1-D call on the column
+        same(kern.bitset_build(t(ids[:, p]), t(valid), nwords), want[p])
+
+
 def _expand_inputs(rng, cap=41, E=160, n_total=300, child_cap=3, n_labels=4):
     src = np.sort(rng.integers(0, cap, E)).astype(np.int32)
     indptr = np.searchsorted(src, np.arange(cap + 2)).astype(np.int32)
