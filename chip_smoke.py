@@ -34,8 +34,13 @@ result lines are printed only when every phase passed):
      (tolerance 0: all outputs are integers or flags); ``stwig_expand``'s
      include a 60,000-edge row over ~30 tiles, 10,000 empty rows, k = 16
      with C = 1 and survivors straddling a tile boundary, ``bitset_build``'s
-     a round's 7 columns with negative ids. Kernel and plain times are
-     CUDA-event medians of 10 runs after a warm-up. ``stwig_expand``'s bound
+     a round's 7 columns with negative ids, ``hash_join_probe``'s both of
+     its routes (a build side above its 102,400-byte shared-memory budget,
+     one exactly at it, one row above it), dup_cap 1, 5 and 100, capB not a
+     multiple of its tile, nk 3; the line names the route each call took.
+     Kernel and plain times are CUDA-event medians of 10 runs after a
+     warm-up; ``hash_join_probe``'s device time also from a CUDA graph of
+     20 calls. ``stwig_expand``'s bound
      counts the bytes it must read when it reads lazily (as
      ``candidate_filter``'s does), the all-inputs figure printed beside it,
      with the device time of each of its two kernels from ``torch.profiler``;
@@ -81,9 +86,14 @@ result lines are printed only when every phase passed):
      ``hash_join_probe`` call, counted (each > 0), bit-exact against their
      plain versions there and on adversarial cases (keys ≥ 2^31, a
      power-of-two build side whose duplicate run fills the window,
-     ``dup_cap > capA``), and in agreement with ``hash_join_probe``: the
-     window's hits with both rows valid and equal key columns are its
-     ``hit``, and the ``idx`` arrays are equal;
+     ``dup_cap > capA``, 25,600 build keys exactly at the lower bound's
+     shared-memory budget and 25,601 above it), and in agreement with
+     ``hash_join_probe``: the window's hits with both rows valid and equal
+     key columns are its ``hit``, and the ``idx`` arrays are equal. Then
+     the lower bound's host path step by step (``perf_counter_ns`` over
+     2,000 calls each), its CUDA-event time against ``torch.searchsorted``'s
+     in turns (100 calls a turn), and each kernel's device time from a CUDA
+     graph of 20 calls and from ``torch.profiler``;
  11. lm — gemma-2b at its published widths and full depth (18 layers,
      d_model 2048, 8 query heads on 1 kv head, head_dim 256, d_ff 16384
      GeGLU, vocab 256,000 tied; 2,506,172,416 parameters, bf16; random
@@ -173,6 +183,69 @@ def time_ms(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_ms_turns(fn_a, fn_b, reps: int = 100) -> tuple[float, float]:
+    """CUDA-event medians of ``fn_a`` and ``fn_b`` timed in turns (a, b, b,
+    a), ``reps`` calls a turn: one call's time, host path included."""
+    runs = {0: [], 1: []}
+    for i in (0, 1, 1, 0):
+        fn = (fn_a, fn_b)[i]
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            runs[i].append(a.elapsed_time(b))
+    return statistics.median(runs[0]), statistics.median(runs[1])
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Device ms a call of ``fn``: ``n`` calls captured in one CUDA graph
+    (after a warm-up on a side stream), the median of 5 replays over ``n``.
+    A replay costs the host almost nothing, so this is the kernels' time
+    back to back; and it runs only what the capture recorded on the current
+    stream, so it also shows the launches went there."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host µs a call of ``fn``: ``perf_counter_ns`` over ``n`` calls, a
+    sync after every 100 (outside the timed span)."""
+    total = 0
+    for _ in range(n // 100):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(100):
+            fn()
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / n / 1e3
 
 
 def device_profile(fn, reps: int = 3):
@@ -424,7 +497,32 @@ def adversarial_cases(dev):
                              t(np.concatenate([big[::3], [0, 0xFFFFFFFF, 2**31]]).astype(np.uint32)),
                              t(rng.integers(0, 3, (25, 1)).astype(np.int32)),
                              t(np.ones(25, bool))), dict(dup_cap=4)),
+        # both routes of the kernel (build side vs the 102,400-byte budget),
+        # dup_cap not a multiple of 16, capB not a multiple of the tile, nk 3
+        join_case(t, 5, 16_384, 3000, 1, 64),  # 147,456 B: device memory
+        join_case(t, 6, 4096, 3000, 5, 16),    # 102,400 B: exactly at the budget
+        join_case(t, 7, 4097, 3000, 5, 16),    # one row above it
+        join_case(t, 8, 8192, 2000, 1, 1),
+        join_case(t, 9, 8192, 1000, 1, 5),
+        join_case(t, 10, 8192, 1000, 2, 100),
+        join_case(t, 11, 3000, 1000, 3, 16),   # nk 3, staged
+        join_case(t, 12, 8000, 999, 3, 5),     # nk 3, device memory
     ]
+
+
+def join_case(t, seed: int, cap_a: int, cap_b: int, nk: int, dup: int):
+    """``hash_join_probe`` on a sorted build side with duplicate runs (its
+    last key 0xFFFFFFFF), probe keys half from it and half random, ~10% of
+    rows invalid on each side, key columns of 3 values."""
+    rng = np.random.default_rng(seed)
+    ka = (np.sort(rng.integers(0, cap_a // 3 + 1, cap_a)).astype(np.uint64) * 977).astype(np.uint32)
+    ka[-1] = 0xFFFFFFFF
+    kb = np.where(rng.random(cap_b) < 0.5, ka[rng.integers(0, cap_a, cap_b)],
+                  rng.integers(0, 2**32, cap_b, dtype=np.uint64).astype(np.uint32))
+    return ("hash_join_probe", (
+        t(ka), t(rng.integers(0, 3, (cap_a, nk)).astype(np.int32)), t(rng.random(cap_a) < 0.9),
+        t(kb.astype(np.uint32)), t(rng.integers(0, 3, (cap_b, nk)).astype(np.int32)),
+        t(rng.random(cap_b) < 0.9)), dict(dup_cap=dup))
 
 
 def skewed_expand_case(t, rng, k: int, C: int):
@@ -624,6 +722,17 @@ def phase_kernels(recorded, launches, dev) -> list[dict]:
             f"{len(cases[op])} adversarial case(s); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
             f"{work(op, args, kw)[0]} B), main-path launches {launches[op]}")
+        if op == "hash_join_probe":
+            from repro_torch.kernels.hash_join.hash_join import route
+
+            routes = [route(*a[1].shape) for a, _ in [(args, kw)] + cases[op]]
+            log(f"[kernels] hash_join_probe: the main-path call took the {routes[0]!r} route "
+                f"(build side {args[1].shape[0]} x (5 + 4 x {args[1].shape[1]}) B); the "
+                f"adversarial cases took {routes[1:]}; device time by a CUDA graph of 20 calls "
+                f"{graph_ms(lambda: cuda_k.hash_join_probe(*args, **kw)):.4f} ms a call; "
+                f"{profile_line(device_profile(lambda: cuda_k.hash_join_probe(*args, **kw), 10))}")
+            if not {"shared", "global"} <= set(routes):
+                fail(f"hash_join_probe's checks took the routes {routes}, not both")
         if op == "stwig_expand":
             # the bound counted every input byte until the kernel read lazily
             words_k, dst, lab, indptr, rok = args
@@ -1131,7 +1240,8 @@ def phase_gnn(dev) -> list[dict]:
 
 # ---------------------------------------------------------------- phase 10
 def probe_cases(dev):
-    """Adversarial (ka, kb, dup_cap) cases of the CPU tests, on the card."""
+    """Adversarial (what, ka, kb, dup_cap) cases of the CPU tests, and the
+    lower bound on both sides of its shared-memory budget, on the card."""
     rng = np.random.default_rng(1)
 
     def t(x):
@@ -1139,17 +1249,22 @@ def probe_cases(dev):
 
     big = np.sort(rng.integers(0, 2**32, 64, dtype=np.uint64)).astype(np.uint32)
     big[-4:] = 0xFFFFFFFF
+    # the lower bound stages capA * 4 bytes up to the 102,400-byte budget: 25,600 keys
+    at_budget = np.sort(rng.integers(0, 2**32, 25_600, dtype=np.uint64))
     return [
         ("keys >= 2**31", t(big), t(np.concatenate([big[::3], [0, 0xFFFFFFFF, 2**31,
                                                                2**31 - 1, 2**31 + 1]])), 4),
         ("pow2 capA, full run", t([0, 5, 5, 5, 5, 5, 5, 9]), t([5, 9, 0, 4, 6, 10, 0xFFFFFFFF]), 6),
         ("dup_cap > capA", t([3, 3, 7]), t([3, 7, 1, 8]), 5),
+        ("at the budget", t(at_budget), t(rng.integers(0, 2**32, 5000, dtype=np.uint64)), 5),
+        ("above the budget", t(np.append(at_budget, 0xFFFFFFFF)),
+         t(np.append(at_budget[::7], [0, 0xFFFFFFFF])), 5),
     ]
 
 
 def phase_probe(dev, probe_call) -> list[dict]:
     from repro_torch.core.backend import get_kernels
-    from repro_torch.extras.join_probe import ops, ref
+    from repro_torch.extras.join_probe import join_probe, ops, ref
     from repro_torch.kernels import cuda
 
     (ka, a_keys, a_valid, kb, b_keys, b_valid), dup = probe_call[1], probe_call[2]["dup_cap"]
@@ -1167,8 +1282,10 @@ def phase_probe(dev, probe_call) -> list[dict]:
     lo_p = ref.lower_bound_reference(ka, kb)
     err_lo = max_abs_err(lo, lo_p)
     err_w = max_abs_err((hit, idx), ref.window_reference(ka, kb, lo_p, dup_cap=dup))
+    routes = []
     for what, a, b, d in probe_cases(dev):
         la, lb = ops.lower_bound(a, b), ref.lower_bound_reference(a, b)
+        routes.append(join_probe.lower_bound_route(a.numel()))
         err_lo = max(err_lo, max_abs_err(la, lb))
         got = ops.window(a, b, la, dup_cap=d)
         err_w = max(err_w, max_abs_err(got, ref.window_reference(a, b, lb, dup_cap=d)))
@@ -1176,6 +1293,8 @@ def phase_probe(dev, probe_call) -> list[dict]:
             fail("probe_window missed a duplicate of a run that fills the window")
     if err_lo or err_w:
         fail(f"join probe kernels differ from their plain versions ({err_lo}, {err_w})")
+    if not {"shared", "global"} <= set(routes):
+        fail(f"probe_lower_bound's cases took the routes {routes}, not both")
     # ---- agreement with the matcher's probe --------------------------------
     h_ref, i_ref = get_kernels("cuda").hash_join_probe(ka, a_keys, a_valid, kb, b_keys, b_valid,
                                                        dup_cap=dup)
@@ -1184,12 +1303,36 @@ def phase_probe(dev, probe_call) -> list[dict]:
     if not (torch.equal(verified, h_ref) and torch.equal(idx, i_ref)):
         fail("window hits verified by validity and key columns differ from hash_join_probe")
     log(f"[probe] lower_bound + window on the query path's largest hash_join_probe input "
-        f"(capA {ka.numel()}, capB {kb.numel()}, dup {dup}): bit-exact against plain there and "
-        f"on {len(probe_cases(dev))} adversarial cases; verified hits ({int(h_ref.sum())}) and "
-        f"idx equal hash_join_probe's; launches "
+        f"(capA {ka.numel()}, capB {kb.numel()}, dup {dup}; lower bound route "
+        f"{join_probe.lower_bound_route(ka.numel())!r}): bit-exact against plain there and on "
+        f"{len(routes)} adversarial cases (lower bound routes {routes}); verified hits "
+        f"({int(h_ref.sum())}) and idx equal hash_join_probe's; launches "
         f"{ {k: counts[k] for k in ('probe_lower_bound', 'probe_window')} }")
-    # ---- times ------------------------------------------------------------
+    # ---- the lower bound's host path, step by step --------------------------
     ka64, kb64 = ka.long() & 0xFFFFFFFF, kb.long() & 0xFFFFFFFF
+    lo_out = torch.empty_like(kb)
+    raw, stream = join_probe.LOWER_BOUND._fn, cuda.current_stream_reader()
+    ptrs = (ka.data_ptr(), ka.numel(), kb.data_ptr())
+    steps = {
+        "ops.lower_bound (the whole path)": lambda: ops.lower_bound(ka, kb),
+        "on_cpu": lambda: cuda.on_cpu(ka, kb),
+        "the checks": lambda: (join_probe._check_build_side(ka),
+                               cuda.check(kb, "kb", torch.int32, 1)),
+        "torch.empty_like (contiguous_format)":
+            lambda: torch.empty_like(kb, memory_format=torch.contiguous_format),
+        "the stream read (raw accessor)": stream,
+        "torch.cuda.current_stream().cuda_stream (the read it replaced)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "three data_ptr()": lambda: (ka.data_ptr(), kb.data_ptr(), lo_out.data_ptr()),
+        "the ctypes call, nothing launched (capB 0)":
+            lambda: raw(*ptrs, 0, lo_out.data_ptr(), stream()),
+        "the ctypes call with its launch": lambda: raw(*ptrs, kb.numel(), lo_out.data_ptr(), stream()),
+        "torch.searchsorted (int64, the library call)":
+            lambda: torch.searchsorted(ka64, kb64, side="left"),
+    }
+    log("[probe] probe_lower_bound's host path, µs a call (perf_counter_ns over 2,000 calls, "
+        "a sync every 100): " + "; ".join(f"{k} {host_us(f):.3f}" for k, f in steps.items()))
+    # ---- times ------------------------------------------------------------
     rows = []
     for op, args, kw, fn, plain_fn, lib in (
         ("probe_lower_bound", (ka, kb), {}, lambda: ops.lower_bound(ka, kb),
@@ -1199,15 +1342,20 @@ def phase_probe(dev, probe_call) -> list[dict]:
          lambda: ops.window(ka, kb, lo, dup_cap=dup),
          lambda: ref.window_reference(ka, kb, lo, dup_cap=dup), None),
     ):
-        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-        lib_ms = time_ms(lib) if lib is not None else None
+        if lib is None:
+            ms, lib_ms = time_ms(fn), None
+        else:  # in turns, 100 calls a turn: both are a few µs of device time
+            ms, lib_ms = time_ms_turns(fn, lib)
+        plain_ms = time_ms(plain_fn)
         row = kernel_row(op, args, kw, counts[op], 0, ms, plain_ms, lib_ms)
         rows.append(row)
         log(f"[probe] {op}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms (torch.searchsorted, int64)'}, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-            f"{work(op, args, kw)[0] / 1e6:.2f} MB), launches {counts[op]}; kernel alone: "
-            f"{profile_line(device_profile(fn, reps=10))}"
+            f"{work(op, args, kw)[0] / 1e6:.2f} MB), launches {counts[op]}; device time by a "
+            f"CUDA graph of 20 calls {graph_ms(fn):.4f} ms a call"
+            + ("" if lib is None else f" (library {graph_ms(lib):.4f})")
+            + f"; kernel alone: {profile_line(device_profile(fn, reps=10))}"
             + ("" if lib is None else f"; library alone: {profile_line(device_profile(lib, 10))}"))
     return rows
 

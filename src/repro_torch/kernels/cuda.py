@@ -107,20 +107,40 @@ class CudaKernel:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
         self.launches = 0
         self._fn = None
+        self._stream = None
         CudaKernel.registry.append(self)
+
+    def _bind(self) -> None:
+        fn = getattr(load(self.source), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._stream = current_stream_reader()
+        self._fn = fn
 
     def __call__(self, *args) -> None:
         if self._fn is None:
-            fn = getattr(load(self.source), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+            self._bind()
+        err = self._fn(*args, self._stream())
         if err != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.symbol} failed to launch: error {err}"
             )
         self.launches += 1
+
+
+def current_stream_reader():
+    """A function that returns the handle of PyTorch's current CUDA stream
+    on the current device, read anew at each call (so a launch lands on the
+    stream of ``torch.cuda.stream(s)`` or of a graph capture). It is the
+    value of ``torch.cuda.current_stream().cuda_stream``, read through
+    PyTorch's raw-stream accessor (the one its compiled kernels use), which
+    builds no ``Stream`` object: that object was the largest piece of a
+    small kernel's host path."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:  # a PyTorch without the accessor
+        return lambda: torch.cuda.current_stream().cuda_stream
+    device = torch._C._cuda_getDevice
+    return lambda: raw(device())
 
 
 def launch_counts() -> dict[str, int]:
@@ -136,7 +156,7 @@ def reset_launch_counts() -> None:
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and rank
     ``ndim`` — what the kernels take."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -148,13 +168,23 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the wrappers then run the
-    plain version); False when all lie on one CUDA device. Raises on a mix."""
+    plain version); False when all lie on one CUDA device. Raises on a mix.
+    The common cases read two flags a tensor and build no device object."""
+    first = tensors[0]
+    if first.is_cuda:
+        index = first.get_device()
+        for t in tensors:
+            if not t.is_cuda or t.get_device() != index:
+                break
+        else:
+            return False
+    elif first.is_cpu:
+        for t in tensors:
+            if not t.is_cpu:
+                break
+        else:
+            return True
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
+    raise ValueError(f"no kernel for device {devices.pop()}")

@@ -1,11 +1,15 @@
 """Wrapper of the join-probe CUDA kernel (``csrc/hash_join.cu``).
 
-Replaces ``hash_join_probe`` of ``src/repro/kernels/hash_join/hash_join.py``.
-One thread per probe row: a lower-bound search of the sorted build keys in
-device memory (the TPU kernel holds them in VMEM; here they do not fit a
-block's shared memory at real capacities and stay in L2 instead), then the
-``dup_cap`` window with exact verification. Bound by the bytes of its
-``(capB, dup_cap)`` outputs and one pass over both sides.
+Replaces ``hash_join_probe`` of ``src/repro/kernels/hash_join/hash_join.py``:
+each probe row's lower bound in the sorted build keys, then its ``dup_cap``
+window with exact verification. Bound by the bytes of its ``(capB,
+dup_cap)`` outputs. The kernel has two routes, chosen by size in its C
+entry point (`route` says which): where the build side's ``capA · (5 + 4·nk)``
+bytes fit ``kStageBudget`` of ``csrc/probe.cuh`` (``STAGE_BUDGET``), each block
+of a persistent grid copies it into shared memory once, as the TPU kernel
+holds it in VMEM; above that the same kernel reads it from device memory.
+Either way one thread a row searches a tile of probe rows, and the tile's
+``hit`` and ``idx`` are written as one contiguous range of 16-byte stores.
 
 A CPU tensor goes to the plain version (`repro_torch.kernels.hash_join.ref`);
 a CUDA tensor launches the kernel or raises.
@@ -13,17 +17,28 @@ a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
-from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
+from repro_torch.kernels.cuda import CSRC, CudaKernel, check, on_cpu
 from repro_torch.kernels.hash_join import ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 PROBE = CudaKernel(
-    "hash_join", "hash_join_probe", [_P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _P, _P]
+    "hash_join", "hash_join_probe", [_P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P]
 )
+
+# the build side's shared-memory budget in bytes, read from the one place it is named
+STAGE_BUDGET = int(re.search(r"kStageBudget = (\d+);", (CSRC / "probe.cuh").read_text())[1])
+
+
+def route(cap_a: int, nk: int) -> str:
+    """The route the kernel takes for a build side of ``cap_a`` rows and
+    ``nk`` key columns: ``"shared"`` (staged in shared memory) or
+    ``"global"`` (read from device memory)."""
+    return "shared" if cap_a * (5 + 4 * nk) <= STAGE_BUDGET else "global"
 
 
 def hash_join_probe(
@@ -59,6 +74,6 @@ def hash_join_probe(
         PROBE(
             ka_sorted.data_ptr(), a_keys.data_ptr(), a_valid.data_ptr(), cap_a,
             kb.data_ptr(), b_keys.data_ptr(), b_valid.data_ptr(), cap_b, nk, dup_cap,
-            max(1, cap_a.bit_length()), hit.data_ptr(), idx.data_ptr(),
+            hit.data_ptr(), idx.data_ptr(),
         )
     return hit, idx

@@ -122,18 +122,35 @@ def test_stwig_expand(dev, k, C, max_deg):
               child_cap=C, cap=cap, n_total=n_total))
 
 
-@pytest.mark.parametrize("cap_a,cap_b,nk,dup", [(8, 1, 1, 6), (1000, 3000, 2, 16), (1 << 16, 1 << 14, 3, 64)])
-def test_hash_join_probe(dev, cap_a, cap_b, nk, dup):
-    rng = np.random.default_rng(cap_a)
+def probe_inputs(dev, cap_a, cap_b, nk, seed):
+    """A sorted build side with duplicate runs (its last key 0xFFFFFFFF) and
+    probe keys drawn from it, about 10% of rows invalid on each side."""
+    rng = np.random.default_rng(seed)
     keys = np.sort(rng.integers(0, 2**32, cap_a, dtype=np.uint64) % (cap_a // 2 + 1) * 977)
     ka = keys.astype(np.uint32)
     ka[-1] = 0xFFFFFFFF
     kb = np.concatenate([ka[rng.integers(0, cap_a, cap_b - 1)], [0xFFFFFFFF]]).astype(np.uint32)
-    same("hash_join_probe", (
-        on(dev, ka), on(dev, rng.integers(0, 2, (cap_a, nk)).astype(np.int32)),
-        on(dev, rng.random(cap_a) < 0.9), on(dev, kb),
-        on(dev, rng.integers(0, 2, (cap_b, nk)).astype(np.int32)), on(dev, rng.random(cap_b) < 0.9),
-    ), dict(dup_cap=dup))
+    return (on(dev, ka), on(dev, rng.integers(0, 2, (cap_a, nk)).astype(np.int32)),
+            on(dev, rng.random(cap_a) < 0.9), on(dev, kb),
+            on(dev, rng.integers(0, 2, (cap_b, nk)).astype(np.int32)),
+            on(dev, rng.random(cap_b) < 0.9))
+
+
+# (capA, capB, nk, dup_cap, route): the build side's capA * (5 + 4 nk) bytes
+# against the 102,400-byte budget; capB mostly not a multiple of the
+# kernel's 256-row tile; dup_cap not a multiple of 16, and above capA
+@pytest.mark.parametrize("cap_a,cap_b,nk,dup,route", [
+    (8, 1, 1, 6, "shared"), (1000, 3000, 2, 16, "shared"), (1 << 16, 1 << 14, 3, 64, "global"),
+    (8192, 262_144, 1, 64, "shared"),   # the matcher's largest join
+    (4096, 1000, 5, 5, "shared"),       # exactly at the budget
+    (4097, 1000, 5, 5, "global"),       # one row above it
+    (8192, 777, 1, 1, "shared"), (20_000, 3001, 1, 100, "global"), (5, 300, 3, 100, "shared"),
+])
+def test_hash_join_probe(dev, cap_a, cap_b, nk, dup, route):
+    from repro_torch.kernels.hash_join import hash_join
+
+    assert hash_join.route(cap_a, nk) == route
+    same("hash_join_probe", probe_inputs(dev, cap_a, cap_b, nk, cap_a), dict(dup_cap=dup))
 
 
 @pytest.mark.parametrize("W", [1, 7, 117962])
@@ -272,10 +289,13 @@ def test_segment_mp(dev, E, d, n, hub):
     assert not got[untouched].any()
 
 
+# (capA, capB, dup_cap): the lower bound stages capA * 4 bytes up to the
+# 102,400-byte budget (25,600 keys) and searches device memory above it
 @pytest.mark.parametrize("cap_a,cap_b,dup", [(8, 7, 6), (3, 4, 5), (8192, 262_144, 64),
-                                             (1 << 16, 1000, 3)])
+                                             (1 << 16, 1000, 3), (25_600, 5000, 5),
+                                             (25_601, 5000, 5), (100, 999, 100)])
 def test_join_probe(dev, cap_a, cap_b, dup):
-    from repro_torch.extras.join_probe import ops, ref
+    from repro_torch.extras.join_probe import join_probe, ops, ref
 
     rng = np.random.default_rng(cap_a + dup)
     ka = np.sort(rng.integers(0, 2**32, cap_a, dtype=np.uint64) % (cap_a // 2 + 1) * 977
@@ -283,6 +303,7 @@ def test_join_probe(dev, cap_a, cap_b, dup):
     ka[-1] = 0xFFFFFFFF
     kb = np.concatenate([ka[rng.integers(0, cap_a, cap_b - 2)], [0, 0xFFFFFFFF]]).astype(np.uint32)
     a, b = on(dev, ka), on(dev, kb)
+    assert join_probe.lower_bound_route(cap_a) == ("shared" if cap_a <= 25_600 else "global")
     c0 = cuda.launch_counts()
     lo = ops.lower_bound(a, b)
     hit, idx = ops.window(a, b, lo, dup_cap=dup)
@@ -292,6 +313,50 @@ def test_join_probe(dev, cap_a, cap_b, dup):
     c1 = cuda.launch_counts()
     assert (c1["probe_lower_bound"], c1["probe_window"]) == (
         c0["probe_lower_bound"] + 1, c0["probe_window"] + 1)
+    assert torch.equal(lo, lo_p) and torch.equal(hit, hit_p) and torch.equal(idx, idx_p)
+
+
+@pytest.mark.parametrize("cap_a", [8192, 30_000], ids=["shared", "global"])
+def test_probe_kernels_launch_on_the_current_stream(dev, cap_a):
+    """Inside ``torch.cuda.stream(s)`` and inside a captured CUDA graph the
+    two probe kernels land on that stream: a side stream's results, and a
+    graph's replay on inputs changed after the capture, equal the plain
+    versions."""
+    from repro_torch.extras.join_probe import ops
+    from repro_torch.extras.join_probe import ref as probe_ref
+    from repro_torch.kernels.hash_join import hash_join
+    from repro_torch.kernels.hash_join import ref as join_ref
+
+    args = probe_inputs(dev, cap_a, 5000, 2, 7)
+    ka, kb = args[0], args[3]
+
+    def run():
+        return ops.lower_bound(ka, kb), hash_join.hash_join_probe(*args, dup_cap=7)
+
+    def want():
+        return probe_ref.lower_bound_reference(ka, kb), join_ref.probe_reference(*args, dup_cap=7)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert cuda.current_stream_reader()() == side.cuda_stream
+        assert side.cuda_stream != torch.cuda.default_stream().cuda_stream
+        lo, (hit, idx) = run()
+    side.synchronize()
+    (lo_p, (hit_p, idx_p)) = want()
+    assert torch.equal(lo, lo_p) and torch.equal(hit, hit_p) and torch.equal(idx, idx_p)
+
+    graph = torch.cuda.CUDAGraph()
+    c0 = cuda.launch_counts()
+    with torch.cuda.graph(graph):
+        lo, (hit, idx) = run()
+    c1 = cuda.launch_counts()
+    assert (c1["probe_lower_bound"], c1["hash_join_probe"]) == (
+        c0["probe_lower_bound"] + 1, c0["hash_join_probe"] + 1)
+    kb.copy_(torch.flip(kb, (0,)))  # new probe keys: the replay must search anew
+    graph.replay()
+    torch.cuda.synchronize()
+    (lo_p, (hit_p, idx_p)) = want()
     assert torch.equal(lo, lo_p) and torch.equal(hit, hit_p) and torch.equal(idx, idx_p)
 
 

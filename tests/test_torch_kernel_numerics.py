@@ -25,8 +25,19 @@ prefix of the tile's survivor flags. Held bit for bit to
 ``stwig_expand_reference`` on skewed graphs, with each output slot written
 exactly once.
 
+And the plan of ``csrc/hash_join.cu``: the build side staged into shared
+memory where it fits the budget (each array at an offset congruent to its
+address mod 16), persistent blocks looping over tiles of probe rows, each
+thread's walk over a tile's slots in 16-slot ``hit`` and 4-slot ``idx``
+vectors with a fast path for a vector inside one row and the build side,
+the scalar tail of the last tile. Held bit for bit to ``probe_reference``
+and the JAX package's ``"jnp"`` probe, with every slot written exactly once.
+
 Inputs come from numpy seeds; the emulations live here, not in the port.
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 
@@ -34,6 +45,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.extras.flash_attention.ref import mha_reference  # noqa: E402
 from repro_torch.kernels.cin.ref import cin_layer_reference  # noqa: E402
+from repro_torch.kernels.hash_join import hash_join  # noqa: E402
+from repro_torch.kernels.hash_join.hash_join import STAGE_BUDGET  # noqa: E402
+from repro_torch.kernels.hash_join.ref import probe_reference  # noqa: E402
 from repro_torch.kernels.stwig_expand.ref import stwig_expand_reference  # noqa: E402
 from repro_torch.kernels.stwig_expand.stwig_expand import TILE  # noqa: E402
 
@@ -274,3 +288,212 @@ def test_stwig_expand_tile_plan(case):
         first = r + at[r] - at[0]
         assert (first + at[r + 1] - at[r]) // tile - first // tile >= 5  # spans tiles
         assert cnt[:, r].max() > kw["child_cap"]  # exact counts past C
+
+
+# ------------------------------------------------------- hash_join_probe plan
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+PROBE_ROWS = int(re.search(r"constexpr int kThreads = (\d+);",
+                           (CSRC / "hash_join.cu").read_text())[1])  # kRows = kThreads
+
+
+def stage_mirror(arrays, addrs, rows):
+    """``stage_offset`` + ``stage_copy`` of ``csrc/probe.cuh``: each array
+    (at a device address ``addrs[i]`` mod 16) placed in a shared image at an
+    offset congruent to it mod 16, its body moved in 16-byte pieces, aligned
+    on both sides; the tile scratch after. Returns views of the image."""
+    image = np.zeros(STAGE_BUDGET + 256 + 9 * rows, np.uint8)
+    writes = np.zeros(image.shape, np.int64)
+    end, views = 0, []
+    for arr, addr in zip(arrays, addrs):
+        off = ((end + 15) & ~15) + addr % 16
+        src = np.ascontiguousarray(arr).view(np.uint8).ravel()
+        n = src.size
+        head = min(n, (16 - addr % 16) % 16)
+        body = (n - head) // 16
+        if body:
+            assert (off + head) % 16 == 0 and (addr + head) % 16 == 0
+        image[off:off + n] = src  # head bytes, 16-byte body pieces, tail bytes
+        writes[off:off + n] += 1
+        views.append(image[off:off + n].view(arr.dtype).reshape(arr.shape))
+        end = off + n
+    assert (writes <= 1).all()
+    off_tile = (end + 15) & ~15
+    assert off_tile + 9 * rows <= STAGE_BUDGET + 3 * 30 + 15 + 9 * rows  # kMaxSmem
+    return views
+
+
+def lower_bound_steps(ka, keys, cap_a):
+    """probe.cuh's search: bit_length(capA) guarded steps, unsigned keys."""
+    lo = np.zeros(keys.shape, np.int64)
+    hi = np.full(keys.shape, cap_a, np.int64)
+    for _ in range(cap_a.bit_length()):
+        act = lo < hi
+        mid = (lo + hi) >> 1
+        right = act & (ka[np.minimum(mid, cap_a - 1)] < keys)
+        lo = np.where(right, mid + 1, lo)
+        hi = np.where(act & ~right, mid, hi)
+    return lo
+
+
+def hash_join_plan_mirror(ka, a_keys, a_valid, kb, b_keys, b_valid, *, dup_cap, rows, blocks,
+                          addrs=(0, 4, 1)):
+    """``csrc/hash_join.cu`` in numpy: the route, the persistent blocks'
+    tiles of ``rows`` probe rows, each thread's walks over the tile's slots
+    (a step: 16 ``hit`` slots and four 4-slot ``idx`` pieces, the fast path
+    where a piece lies in one row and inside the build side), the scalar
+    tails. Returns ``(hit, idx, hit_writes, idx_writes, route)``."""
+    cap_a, nk = a_keys.shape
+    cap_b, dup = kb.shape[0], dup_cap
+    route = "shared" if cap_a * (5 + 4 * nk) <= STAGE_BUDGET else "global"
+    if route == "shared":
+        ka, a_keys, a_valid = stage_mirror((ka, a_keys, a_valid), addrs, rows)
+    hit = np.zeros(cap_b * dup, np.uint8)
+    idx = np.zeros(cap_b * dup, np.int64)
+    hit_w = np.zeros(cap_b * dup, np.int64)
+    idx_w = np.zeros(cap_b * dup, np.int64)
+
+    def verified(pc, j):
+        return bool(a_valid[pc]) and bool((a_keys[pc] == b_keys[j]).all())
+
+    def slot_hit(pos, key, bv, j):
+        return bool(bv) and pos < cap_a and ka[pos] == key and verified(pos, j)
+
+    n_tiles = -(-cap_b // rows)
+    for block in range(min(blocks, n_tiles)):
+        for tile in range(block, n_tiles, blocks):
+            j0 = tile * rows
+            n_rows = min(rows, cap_b - j0)
+            s_lo = lower_bound_steps(ka, kb[j0:j0 + n_rows], cap_a)
+            s_key, s_bv = kb[j0:j0 + n_rows], b_valid[j0:j0 + n_rows]
+            n_slots, base = n_rows * dup, j0 * dup
+            assert base % 16 == 0  # both outputs' vectors start 16-byte aligned
+            n16, n4 = n_slots // 16, n_slots // 4
+
+            def walk(first, stride):  # Walk: one division, then constant steps
+                return [*divmod(first, dup), *divmod(stride, dup)]
+
+            def step(wk):
+                wk[0], wk[1] = wk[0] + wk[2], wk[1] + wk[3]
+                if wk[1] >= dup:
+                    wk[0], wk[1] = wk[0] + 1, wk[1] - dup
+
+            def hit_vector(r, w):
+                lo = int(s_lo[r])
+                if w + 16 <= dup and lo + w + 16 <= cap_a:  # one row, in range
+                    eq = (ka[lo + w:lo + w + 16] == s_key[r]) & bool(s_bv[r])
+                    return [bool(e) and verified(lo + w + i, j0 + r) for i, e in enumerate(eq)]
+                m = []
+                for i in range(16):
+                    m.append(slot_hit(int(s_lo[r]) + w, s_key[r], s_bv[r], j0 + r))
+                    w += 1
+                    if w == dup and i < 15:
+                        r, w = r + 1, 0
+                return m
+
+            def idx_vector(r, w):
+                lo = int(s_lo[r])
+                if w + 4 <= dup and lo + w + 4 <= cap_a:
+                    return [lo + w + i for i in range(4)]
+                out = []
+                for i in range(4):
+                    out.append(min(int(s_lo[r]) + w, cap_a - 1))
+                    w += 1
+                    if w == dup and i < 3:
+                        r, w = r + 1, 0
+                return out
+
+            for tid in range(rows):  # one step: 16 hit slots and four 4-slot idx pieces
+                a, b = walk(16 * tid, 16 * rows), walk(4 * tid, 4 * rows)
+                v = q = tid
+                while q < n4:
+                    if v < n16:
+                        assert a[:2] == list(divmod(16 * v, dup))
+                        sl = slice(base + 16 * v, base + 16 * v + 16)
+                        hit[sl] = hit_vector(*a[:2])
+                        hit_w[sl] += 1
+                    for _ in range(4):
+                        if q < n4:
+                            assert b[:2] == list(divmod(4 * q, dup))
+                            sl = slice(base + 4 * q, base + 4 * q + 4)
+                            idx[sl] = idx_vector(*b[:2])
+                            idx_w[sl] += 1
+                        q += rows
+                        step(b)
+                    v += rows
+                    step(a)
+            for width in (16, 4):  # the scalar tails: only the last tile's
+                tail = range(width * (n_slots // width), n_slots)
+                assert not len(tail) or tile == n_tiles - 1
+                for lt in tail:
+                    r, w = divmod(lt, dup)
+                    pos = int(s_lo[r]) + w
+                    if width == 16:
+                        hit[base + lt] = slot_hit(pos, s_key[r], s_bv[r], j0 + r)
+                        hit_w[base + lt] += 1
+                    else:
+                        idx[base + lt] = min(pos, cap_a - 1)
+                        idx_w[base + lt] += 1
+    shape = (cap_b, dup)
+    return (hit.reshape(shape).astype(bool), idx.reshape(shape).astype(np.int32),
+            hit_w.reshape(shape), idx_w.reshape(shape), route)
+
+
+def probe_case(seed, cap_a, cap_b, nk, *, distinct=None, high=False):
+    """A sorted build side with duplicate runs (keys ≥ 2**31 when ``high``),
+    probe keys half drawn from it, ~20% invalid rows on each side, key
+    columns of 3 values (so verification rejects some hash matches)."""
+    rng = np.random.default_rng(seed)
+    distinct = distinct or cap_a // 3 + 1
+    ka = np.sort(rng.integers(0, distinct, cap_a)).astype(np.uint64) * 977
+    ka = (ka + (2**31 if high else 0)).astype(np.uint32)
+    ka[-1] = 0xFFFFFFFF
+    kb = np.where(rng.random(cap_b) < 0.5, ka[rng.integers(0, cap_a, cap_b)],
+                  rng.integers(0, 2**32, cap_b, dtype=np.uint64).astype(np.uint32))
+    kb[:2] = [0, 0xFFFFFFFF]
+    return (ka, rng.integers(0, 3, (cap_a, nk)).astype(np.int32), rng.random(cap_a) < 0.8,
+            kb.astype(np.uint32), rng.integers(0, 3, (cap_b, nk)).astype(np.int32),
+            rng.random(cap_b) < 0.8)
+
+
+def probe_plan_cases():
+    pow2 = (np.array([0, 5, 5, 5, 5, 5, 5, 9], np.uint32), np.full((8, 1), 5, np.int32),
+            np.ones(8, bool), np.array([5, 9, 4, 5], np.uint32), np.full((4, 1), 5, np.int32),
+            np.array([True, True, True, False]))
+    return {  # (args, dup_cap, rows, blocks, route)
+        "dup1": (probe_case(1, 300, 1100, 1), 1, PROBE_ROWS, 2, "shared"),
+        "dup3-nk3": (probe_case(2, 300, 700, 3), 3, PROBE_ROWS, 2, "shared"),
+        "dup16": (probe_case(3, 300, 1100, 1), 16, PROBE_ROWS, 2, "shared"),
+        "dup64": (probe_case(4, 300, 600, 1), 64, PROBE_ROWS, 1, "shared"),
+        "dup100-nk3-keys-over-2^31": (probe_case(5, 200, 300, 3, high=True), 100, PROBE_ROWS, 2,
+                                      "shared"),
+        "dup-over-capA": (probe_case(6, 5, 40, 1), 8, 16, 2, "shared"),
+        "dup3-small-tiles": (probe_case(7, 100, 333, 1, distinct=20), 3, 16, 3, "shared"),
+        "pow2-full-run": (pow2, 6, 16, 1, "shared"),
+        "at-budget": (probe_case(8, 4096, 300, 5), 5, PROBE_ROWS, 2, "shared"),
+        "over-budget": (probe_case(9, 4097, 300, 5), 5, PROBE_ROWS, 2, "global"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(probe_plan_cases()))
+def test_hash_join_probe_tile_plan(case):
+    """Every (row, slot) of ``hit`` and ``idx`` written exactly once, bit
+    for bit the plain version's and the JAX package's ``"jnp"`` probe's."""
+    jax = pytest.importorskip("jax")
+    from repro.core.backend import get_kernels
+
+    args, dup, rows, blocks, route = probe_plan_cases()[case]
+    hit, idx, hit_w, idx_w, got_route = hash_join_plan_mirror(*args, dup_cap=dup, rows=rows,
+                                                              blocks=blocks)
+    assert got_route == route == hash_join.route(args[1].shape[0], args[1].shape[1])
+    assert (hit_w == 1).all() and (idx_w == 1).all(), "a slot written other than exactly once"
+    tt = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a) for a in args]
+    want_hit, want_idx = probe_reference(*tt, dup_cap=dup)
+    np.testing.assert_array_equal(hit, want_hit.numpy())
+    np.testing.assert_array_equal(idx, want_idx.numpy())
+    # one jitted call compiles faster than the eager op-by-op dispatch
+    jnp_probe = jax.jit(lambda *a: get_kernels("jnp").hash_join_probe(*a, dup_cap=dup))
+    jh, ji = jnp_probe(*(jax.numpy.asarray(a) for a in args))
+    np.testing.assert_array_equal(hit, np.asarray(jh))
+    np.testing.assert_array_equal(idx, np.asarray(ji))
+    if case == "pow2-full-run":
+        assert hit[0].all() and idx[0, 0] == 1  # the run of six fills the window
