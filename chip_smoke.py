@@ -37,7 +37,9 @@ result lines are printed only when every phase passed):
      a round's 7 columns with negative ids, ``hash_join_probe``'s both of
      its routes (a build side above its 102,400-byte shared-memory budget,
      one exactly at it, one row above it), dup_cap 1, 5 and 100, capB not a
-     multiple of its tile, nk 3; the line names the route each call took.
+     multiple of its tile, nk 3; the route each call took, as the kernel's
+     C entry point recorded it, must be the one its case names, and the
+     line names them all.
      Kernel and plain times are CUDA-event medians of 10 runs after a
      warm-up; ``hash_join_probe``'s device time also from a CUDA graph of
      20 calls. ``stwig_expand``'s bound
@@ -86,14 +88,13 @@ result lines are printed only when every phase passed):
      ``hash_join_probe`` call, counted (each > 0), bit-exact against their
      plain versions there and on adversarial cases (keys ≥ 2^31, a
      power-of-two build side whose duplicate run fills the window,
-     ``dup_cap > capA``, 25,600 build keys exactly at the lower bound's
-     shared-memory budget and 25,601 above it), and in agreement with
-     ``hash_join_probe``: the window's hits with both rows valid and equal
-     key columns are its ``hit``, and the ``idx`` arrays are equal. Then
-     the lower bound's host path step by step (``perf_counter_ns`` over
-     2,000 calls each), its CUDA-event time against ``torch.searchsorted``'s
-     in turns (100 calls a turn), and each kernel's device time from a CUDA
-     graph of 20 calls and from ``torch.profiler``;
+     ``dup_cap > capA``), and in agreement with ``hash_join_probe``: the
+     window's hits with both rows valid and equal key columns are its
+     ``hit``, and the ``idx`` arrays are equal. Then the lower bound's host
+     path step by step (``perf_counter_ns`` over 2,000 calls each), its
+     CUDA-event time and ``torch.searchsorted``'s as medians of 10 runs (as
+     every row) and also in turns (100 calls a turn), and each kernel's
+     device time from a CUDA graph of 20 calls and from ``torch.profiler``;
  11. lm — gemma-2b at its published widths and full depth (18 layers,
      d_model 2048, 8 query heads on 1 kv head, head_dim 256, d_ff 16384
      GeGLU, vocab 256,000 tied; 2,506,172,416 parameters, bf16; random
@@ -452,7 +453,8 @@ def recording_kernels():
 
 # ---------------------------------------------------------------- phase 5
 def adversarial_cases(dev):
-    """Small cases of the CPU tests, on the card: (op, args, kwargs)."""
+    """Small cases of the CPU tests, on the card: (op, args, kwargs), and
+    for some ``hash_join_probe`` cases the route the kernel must take."""
     from repro_torch.kernels.bitset.ref import n_words
 
     rng = np.random.default_rng(0)
@@ -499,21 +501,22 @@ def adversarial_cases(dev):
                              t(np.ones(25, bool))), dict(dup_cap=4)),
         # both routes of the kernel (build side vs the 102,400-byte budget),
         # dup_cap not a multiple of 16, capB not a multiple of the tile, nk 3
-        join_case(t, 5, 16_384, 3000, 1, 64),  # 147,456 B: device memory
-        join_case(t, 6, 4096, 3000, 5, 16),    # 102,400 B: exactly at the budget
-        join_case(t, 7, 4097, 3000, 5, 16),    # one row above it
-        join_case(t, 8, 8192, 2000, 1, 1),
-        join_case(t, 9, 8192, 1000, 1, 5),
-        join_case(t, 10, 8192, 1000, 2, 100),
-        join_case(t, 11, 3000, 1000, 3, 16),   # nk 3, staged
-        join_case(t, 12, 8000, 999, 3, 5),     # nk 3, device memory
+        join_case(t, 5, 16_384, 3000, 1, 64, "global"),  # 147,456 B
+        join_case(t, 6, 4096, 3000, 5, 16, "shared"),    # 102,400 B: exactly at the budget
+        join_case(t, 7, 4097, 3000, 5, 16, "global"),    # one row above it
+        join_case(t, 8, 8192, 2000, 1, 1, "shared"),
+        join_case(t, 9, 8192, 1000, 1, 5, "shared"),
+        join_case(t, 10, 8192, 1000, 2, 100, "global"),
+        join_case(t, 11, 3000, 1000, 3, 16, "shared"),   # nk 3
+        join_case(t, 12, 8000, 999, 3, 5, "global"),     # nk 3
     ]
 
 
-def join_case(t, seed: int, cap_a: int, cap_b: int, nk: int, dup: int):
+def join_case(t, seed: int, cap_a: int, cap_b: int, nk: int, dup: int, route: str):
     """``hash_join_probe`` on a sorted build side with duplicate runs (its
     last key 0xFFFFFFFF), probe keys half from it and half random, ~10% of
-    rows invalid on each side, key columns of 3 values."""
+    rows invalid on each side, key columns of 3 values; ``route`` is the
+    one the kernel must take (``hash_join.last_route``)."""
     rng = np.random.default_rng(seed)
     ka = (np.sort(rng.integers(0, cap_a // 3 + 1, cap_a)).astype(np.uint64) * 977).astype(np.uint32)
     ka[-1] = 0xFFFFFFFF
@@ -522,7 +525,7 @@ def join_case(t, seed: int, cap_a: int, cap_b: int, nk: int, dup: int):
     return ("hash_join_probe", (
         t(ka), t(rng.integers(0, 3, (cap_a, nk)).astype(np.int32)), t(rng.random(cap_a) < 0.9),
         t(kb.astype(np.uint32)), t(rng.integers(0, 3, (cap_b, nk)).astype(np.int32)),
-        t(rng.random(cap_b) < 0.9)), dict(dup_cap=dup))
+        t(rng.random(cap_b) < 0.9)), dict(dup_cap=dup), route)
 
 
 def skewed_expand_case(t, rng, k: int, C: int):
@@ -699,18 +702,26 @@ KERNEL_INFO = {
 def phase_kernels(recorded, launches, dev) -> list[dict]:
     from repro_torch.core.backend import get_kernels
 
+    from repro_torch.kernels.hash_join.hash_join import last_route
+
     cuda_k, plain = get_kernels("cuda"), get_kernels("torch")
     cases = {op: [] for op in MATCHER_KERNELS}
-    for op, args, kw in adversarial_cases(dev):
-        cases[op].append((args, kw))
+    for op, args, kw, *route in adversarial_cases(dev):
+        cases[op].append((args, kw, route[0] if route else None))
     rows = []
     for op in MATCHER_KERNELS:
         if op not in recorded:
             fail(f"{op}: the main path never called it")
         _, args, kw = recorded[op]
-        err = 0
-        for a, k in [(args, kw)] + cases[op]:
-            err = max(err, max_abs_err(getattr(cuda_k, op)(*a, **k), getattr(plain, op)(*a, **k)))
+        err, routes = 0, []
+        for a, k, want in [(args, kw, None)] + cases[op]:
+            got = getattr(cuda_k, op)(*a, **k)
+            if op == "hash_join_probe":  # the route the C entry point launched
+                routes.append(last_route())
+                if want is not None and routes[-1] != want:
+                    fail(f"hash_join_probe on a build side of {tuple(a[1].shape)} took the "
+                         f"{routes[-1]!r} route, not {want!r}")
+            err = max(err, max_abs_err(got, getattr(plain, op)(*a, **k)))
         torch.cuda.synchronize()
         if err != 0:
             fail(f"{op}: kernel differs from its plain version (max abs err {err})")
@@ -723,12 +734,10 @@ def phase_kernels(recorded, launches, dev) -> list[dict]:
             f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
             f"{work(op, args, kw)[0]} B), main-path launches {launches[op]}")
         if op == "hash_join_probe":
-            from repro_torch.kernels.hash_join.hash_join import route
-
-            routes = [route(*a[1].shape) for a, _ in [(args, kw)] + cases[op]]
             log(f"[kernels] hash_join_probe: the main-path call took the {routes[0]!r} route "
                 f"(build side {args[1].shape[0]} x (5 + 4 x {args[1].shape[1]}) B); the "
-                f"adversarial cases took {routes[1:]}; device time by a CUDA graph of 20 calls "
+                f"adversarial cases took {routes[1:]}, as the C entry point recorded them; "
+                f"device time by a CUDA graph of 20 calls "
                 f"{graph_ms(lambda: cuda_k.hash_join_probe(*args, **kw)):.4f} ms a call; "
                 f"{profile_line(device_profile(lambda: cuda_k.hash_join_probe(*args, **kw), 10))}")
             if not {"shared", "global"} <= set(routes):
@@ -1240,8 +1249,7 @@ def phase_gnn(dev) -> list[dict]:
 
 # ---------------------------------------------------------------- phase 10
 def probe_cases(dev):
-    """Adversarial (what, ka, kb, dup_cap) cases of the CPU tests, and the
-    lower bound on both sides of its shared-memory budget, on the card."""
+    """Adversarial (what, ka, kb, dup_cap) cases of the CPU tests, on the card."""
     rng = np.random.default_rng(1)
 
     def t(x):
@@ -1249,16 +1257,11 @@ def probe_cases(dev):
 
     big = np.sort(rng.integers(0, 2**32, 64, dtype=np.uint64)).astype(np.uint32)
     big[-4:] = 0xFFFFFFFF
-    # the lower bound stages capA * 4 bytes up to the 102,400-byte budget: 25,600 keys
-    at_budget = np.sort(rng.integers(0, 2**32, 25_600, dtype=np.uint64))
     return [
         ("keys >= 2**31", t(big), t(np.concatenate([big[::3], [0, 0xFFFFFFFF, 2**31,
                                                                2**31 - 1, 2**31 + 1]])), 4),
         ("pow2 capA, full run", t([0, 5, 5, 5, 5, 5, 5, 9]), t([5, 9, 0, 4, 6, 10, 0xFFFFFFFF]), 6),
         ("dup_cap > capA", t([3, 3, 7]), t([3, 7, 1, 8]), 5),
-        ("at the budget", t(at_budget), t(rng.integers(0, 2**32, 5000, dtype=np.uint64)), 5),
-        ("above the budget", t(np.append(at_budget, 0xFFFFFFFF)),
-         t(np.append(at_budget[::7], [0, 0xFFFFFFFF])), 5),
     ]
 
 
@@ -1282,10 +1285,9 @@ def phase_probe(dev, probe_call) -> list[dict]:
     lo_p = ref.lower_bound_reference(ka, kb)
     err_lo = max_abs_err(lo, lo_p)
     err_w = max_abs_err((hit, idx), ref.window_reference(ka, kb, lo_p, dup_cap=dup))
-    routes = []
-    for what, a, b, d in probe_cases(dev):
+    cases = probe_cases(dev)
+    for what, a, b, d in cases:
         la, lb = ops.lower_bound(a, b), ref.lower_bound_reference(a, b)
-        routes.append(join_probe.lower_bound_route(a.numel()))
         err_lo = max(err_lo, max_abs_err(la, lb))
         got = ops.window(a, b, la, dup_cap=d)
         err_w = max(err_w, max_abs_err(got, ref.window_reference(a, b, lb, dup_cap=d)))
@@ -1293,8 +1295,6 @@ def phase_probe(dev, probe_call) -> list[dict]:
             fail("probe_window missed a duplicate of a run that fills the window")
     if err_lo or err_w:
         fail(f"join probe kernels differ from their plain versions ({err_lo}, {err_w})")
-    if not {"shared", "global"} <= set(routes):
-        fail(f"probe_lower_bound's cases took the routes {routes}, not both")
     # ---- agreement with the matcher's probe --------------------------------
     h_ref, i_ref = get_kernels("cuda").hash_join_probe(ka, a_keys, a_valid, kb, b_keys, b_valid,
                                                        dup_cap=dup)
@@ -1303,15 +1303,18 @@ def phase_probe(dev, probe_call) -> list[dict]:
     if not (torch.equal(verified, h_ref) and torch.equal(idx, i_ref)):
         fail("window hits verified by validity and key columns differ from hash_join_probe")
     log(f"[probe] lower_bound + window on the query path's largest hash_join_probe input "
-        f"(capA {ka.numel()}, capB {kb.numel()}, dup {dup}; lower bound route "
-        f"{join_probe.lower_bound_route(ka.numel())!r}): bit-exact against plain there and on "
-        f"{len(routes)} adversarial cases (lower bound routes {routes}); verified hits "
+        f"(capA {ka.numel()}, capB {kb.numel()}, dup {dup}): bit-exact against plain there and "
+        f"on {len(cases)} adversarial cases; verified hits "
         f"({int(h_ref.sum())}) and idx equal hash_join_probe's; launches "
         f"{ {k: counts[k] for k in ('probe_lower_bound', 'probe_window')} }")
     # ---- the lower bound's host path, step by step --------------------------
     ka64, kb64 = ka.long() & 0xFFFFFFFF, kb.long() & 0xFFFFFFFF
     lo_out = torch.empty_like(kb)
-    raw, stream = join_probe.LOWER_BOUND._fn, cuda.current_stream_reader()
+    raw = join_probe.LOWER_BOUND._fn
+
+    def stream():  # the read CudaKernel passes to every launch
+        return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
     ptrs = (ka.data_ptr(), ka.numel(), kb.data_ptr())
     steps = {
         "ops.lower_bound (the whole path)": lambda: ops.lower_bound(ka, kb),
@@ -1342,15 +1345,16 @@ def phase_probe(dev, probe_call) -> list[dict]:
          lambda: ops.window(ka, kb, lo, dup_cap=dup),
          lambda: ref.window_reference(ka, kb, lo, dup_cap=dup), None),
     ):
-        if lib is None:
-            ms, lib_ms = time_ms(fn), None
-        else:  # in turns, 100 calls a turn: both are a few µs of device time
-            ms, lib_ms = time_ms_turns(fn, lib)
+        ms, lib_ms = time_ms(fn), None if lib is None else time_ms(lib)
         plain_ms = time_ms(plain_fn)
         row = kernel_row(op, args, kw, counts[op], 0, ms, plain_ms, lib_ms)
         rows.append(row)
+        turns = "" if lib is None else (
+            "; in turns of 100 calls (a, b, b, a): kernel {:.4f} ms, library {:.4f} ms".format(
+                *time_ms_turns(fn, lib)))
         log(f"[probe] {op}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms (torch.searchsorted, int64)'}, "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms (torch.searchsorted, int64)'}"
+            f"{turns}, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
             f"{work(op, args, kw)[0] / 1e6:.2f} MB), launches {counts[op]}; device time by a "
             f"CUDA graph of 20 calls {graph_ms(fn):.4f} ms a call"

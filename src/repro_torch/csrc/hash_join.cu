@@ -15,15 +15,18 @@
 // from somewhere faster than device memory:
 //
 // * Staged route. The TPU kernel keeps the whole build side in VMEM. Where
-//   capA * (5 + 4 * nk) bytes fit kStageBudget (probe.cuh, 100 KB; that
-//   join's is 72 KB), a block copies ka, a_keys and a_valid into shared
-//   memory once, with 16-byte loads (stage_copy). The grid is persistent:
-//   kStagedBlocksPerSm blocks an SM, each looping over tiles of probe rows,
-//   so the build side crosses from L2 once a block, not once a tile.
+//   capA * (5 + 4 * nk) bytes fit kStageBudget (100 KB, so that two blocks
+//   fit an SM; that join's is 72 KB), a block copies ka, a_keys and a_valid
+//   into shared memory once, with 16-byte loads (stage_copy). The grid is
+//   persistent: as many blocks an SM as stay resident together (Grid), each
+//   looping over tiles of probe rows, so the build side crosses from L2
+//   once a block, not once a tile.
 // * Device-memory route. Above the budget a second instantiation of the
 //   same kernel reads the build side where it lies (its upper search levels
-//   stay in L1 and L2), kGlobalBlocksPerSm blocks an SM. The entry point
-//   chooses by size; both routes give the same bits.
+//   stay in L1 and L2), on a persistent grid sized the same way. The entry
+//   point chooses by size, and records the route it launched
+//   (hash_join_probe_last_route, for the checks that both routes run);
+//   both routes give the same bits.
 // * A tile is kRows probe rows. One thread a row searches (the same code
 //   over either copy) and leaves lo, the key and b_valid in shared memory;
 //   the next tile's kb and b_valid are loaded into registers while this
@@ -51,6 +54,9 @@
 
 namespace {
 
+// Build-side bytes, capA * (5 + 4 * nk), that a block may stage in shared
+// memory.
+constexpr long long kStageBudget = 102400;
 constexpr int kThreads = 512;
 constexpr int kRows = kThreads;  // one search thread a row
 static_assert(kRows % 16 == 0, "a tile's outputs must start 16-byte aligned");
@@ -59,7 +65,37 @@ constexpr int kTileScratch = 9 * kRows;
 // a staged block: the budget, up to 30 bytes of placement slack for each
 // of its three arrays (stage_offset) and 15 for the scratch's alignment
 constexpr int kMaxSmem = (int)kStageBudget + 3 * 30 + 15 + kTileScratch;
-constexpr int kGlobalBlocksPerSm = 2048 / kThreads;  // a full SM of threads
+
+// The first shared offset at or after `end` that is congruent to `ptr`
+// mod 16. Each staged array sits at such an offset, so that stage_copy
+// moves its body with 16-byte loads and stores and only a head and a tail
+// of < 16 bytes one byte at a time, whatever the tensor's alignment.
+long long stage_offset(long long end, const void* ptr) {
+    return ((end + 15) & ~15LL) + (long long)((uintptr_t)ptr & 15);
+}
+
+// Copy n bytes from device memory to shared memory, every thread of the
+// block taking part; dst must be congruent to src mod 16 (stage_offset).
+__device__ __forceinline__ void stage_copy(uint8_t* dst, const void* src_v, long long n) {
+    const uint8_t* src = (const uint8_t*)src_v;
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const long long head = min(n, (long long)((16 - ((uintptr_t)src & 15)) & 15));
+    const long long body = (n - head) / 16;
+    const long long tail = n - head - 16 * body;
+    if (tid < head) dst[tid] = src[tid];
+    uint4* d = (uint4*)(dst + head);
+    const uint4* s = (const uint4*)(src + head);
+    long long i = tid;
+    for (; i + 3 * nt < body; i += 4 * nt) {  // four 16-byte loads in flight a thread
+        const uint4 a = s[i], b = s[i + nt], c = s[i + 2 * nt], e = s[i + 3 * nt];
+        d[i] = a;
+        d[i + nt] = b;
+        d[i + 2 * nt] = c;
+        d[i + 3 * nt] = e;
+    }
+    for (; i < body; i += nt) d[i] = s[i];
+    if (tid < tail) dst[head + 16 * body + tid] = src[head + 16 * body + tid];
+}
 
 struct Probe {
     const uint32_t* ka;
@@ -256,9 +292,36 @@ __global__ void __launch_bounds__(kThreads) probe_kernel(const Probe p) {
     }
 }
 
-LaunchSetup staged_setup, global_setup;
+// A route's persistent grid, set up at its first launch on each device: it
+// lets the kernel take up to max_smem bytes of dynamic shared memory, and
+// its size is the blocks that stay resident together on an SM at that much
+// shared memory, registers counted (the occupancy query), times the SMs.
+struct Grid {
+    static constexpr int kDevices = 64;
+    int blocks[kDevices] = {};
+
+    int size(const void* kernel, int max_smem) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        if (dev < kDevices && blocks[dev]) return blocks[dev];
+        int sms = 0, per_sm = 0;
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, max_smem);
+        const int n = std::max(per_sm, 1) * sms;
+        if (dev < kDevices) blocks[dev] = n;
+        return n;
+    }
+};
+
+Grid staged_grid, global_grid;
+int last_route = -1;  // 1: staged, 0: device memory; -1: none launched yet
 
 }  // namespace
+
+// The route of this process's last launch that wrote anything: 1 for the
+// build side staged in shared memory, 0 for device memory, -1 before any.
+extern "C" int hash_join_probe_last_route() { return last_route; }
 
 extern "C" int hash_join_probe(const void* ka, const void* a_keys, const void* a_valid,
                                int cap_a, const void* kb, const void* b_keys,
@@ -280,12 +343,14 @@ extern "C" int hash_join_probe(const void* ka, const void* a_keys, const void* a
         p.off_valid = (int)stage_offset(end, a_valid);
         end = p.off_valid + cap_a;
         p.off_tile = (int)((end + 15) & ~15LL);
-        const int sms = staged_setup.sm_count((const void*)probe_kernel<true>, kMaxSmem);
-        const unsigned blocks = (unsigned)std::min(n_tiles, (long long)kStagedBlocksPerSm * sms);
+        const int grid = staged_grid.size((const void*)probe_kernel<true>, kMaxSmem);
+        const unsigned blocks = (unsigned)std::min(n_tiles, (long long)grid);
+        last_route = 1;
         probe_kernel<true><<<blocks, kThreads, p.off_tile + kTileScratch, (cudaStream_t)stream>>>(p);
     } else {
-        const int sms = global_setup.sm_count((const void*)probe_kernel<false>, kTileScratch);
-        const unsigned blocks = (unsigned)std::min(n_tiles, (long long)kGlobalBlocksPerSm * sms);
+        const int grid = global_grid.size((const void*)probe_kernel<false>, kTileScratch);
+        const unsigned blocks = (unsigned)std::min(n_tiles, (long long)grid);
+        last_route = 0;
         probe_kernel<false><<<blocks, kThreads, kTileScratch, (cudaStream_t)stream>>>(p);
     }
     return (int)cudaGetLastError();

@@ -6,14 +6,12 @@
 //
 //   probe_lower_bound: one thread per probe row runs probe.cuh's guarded
 //     bit_length(capA)-step lower bound over the sorted build keys, the
-//     search hash_join.cu runs. The TPU kernel holds the build keys in VMEM.
-//     Where capA * 4 bytes fit kStageBudget (probe.cuh), each block of a
-//     persistent grid (kStagedBlocksPerSm blocks an SM) copies them into
-//     shared memory once and searches there; above it a second
-//     instantiation searches device memory, whose upper levels stay in L2,
-//     one thread a row over as many blocks as rows need. Bound: bytes (capB
-//     keys in, capB ids out); the log2(capA) dependent loads per thread are
-//     its latency.
+//     search hash_join.cu runs. The TPU kernel holds the build keys in VMEM;
+//     here they are read from device memory and their upper levels stay in
+//     L1 and L2. Bound: bytes (capB keys in, capB ids out); the log2(capA)
+//     dependent loads per thread are its latency. The keys are not staged
+//     in shared memory, as hash_join.cu stages its build side: a call's time
+//     is set by its host path, which staging does not shorten (PERF.md).
 //   probe_window: one thread per output element (row j, slot w), so that
 //     neighbouring threads write neighbouring bytes of hit (capB, dup_cap)
 //     and idx (capB, dup_cap): p = lo[j] + w, idx = min(p, capA - 1),
@@ -24,7 +22,6 @@
 // Each entry point returns cudaGetLastError() after its launch;
 // probe_lower_bound launches nothing when there is nothing to write.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -32,29 +29,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // probe_window's blocks
-constexpr int kSearchThreads = 512;  // probe_lower_bound's
+constexpr int kThreads = 256;
 
-template <bool kStaged>
-__global__ void __launch_bounds__(kSearchThreads)
-    lower_bound_kernel(const uint32_t* __restrict__ ka, int cap_a, int off_ka,
-                       const uint32_t* __restrict__ kb, long long cap_b, int steps,
-                       int32_t* __restrict__ lo) {
-    extern __shared__ __align__(16) uint8_t smem[];
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    uint32_t key = j < cap_b ? kb[j] : 0;  // loaded while the block stages
-    const uint32_t* keys = ka;
-    if constexpr (kStaged) {
-        stage_copy(smem + off_ka, ka, 4LL * cap_a);
-        keys = (const uint32_t*)(smem + off_ka);
-        __syncthreads();
-    }
-    for (; j < cap_b; j += stride) {
-        const uint32_t next = j + stride < cap_b ? kb[j + stride] : 0;
-        lo[j] = probe_lower_bound(keys, cap_a, key, steps);
-        key = next;
-    }
+__global__ void lower_bound_kernel(const uint32_t* __restrict__ ka, int cap_a,
+                                   const uint32_t* __restrict__ kb, long long cap_b, int steps,
+                                   int32_t* __restrict__ lo) {
+    const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= cap_b) return;
+    lo[j] = probe_lower_bound(ka, cap_a, kb[j], steps);
 }
 
 __global__ void window_kernel(const uint32_t* __restrict__ ka, int cap_a,
@@ -70,27 +52,15 @@ __global__ void window_kernel(const uint32_t* __restrict__ ka, int cap_a,
     idx[t] = (int32_t)pc;
 }
 
-LaunchSetup staged_setup;
-
 }  // namespace
 
 extern "C" int probe_lower_bound(const void* ka, int cap_a, const void* kb, long long cap_b,
                                  void* lo, void* stream) {
     if (cap_b == 0) return 0;  // nothing to write
-    const long long blocks = (cap_b + kSearchThreads - 1) / kSearchThreads;
-    const int steps = probe_steps(cap_a);
-    if (4LL * cap_a <= kStageBudget) {
-        const int off_ka = (int)stage_offset(0, ka);
-        const int sms = staged_setup.sm_count((const void*)lower_bound_kernel<true>,
-                                              (int)kStageBudget + 15);
-        lower_bound_kernel<true><<<(unsigned)std::min(blocks, (long long)kStagedBlocksPerSm * sms),
-                                   kSearchThreads, off_ka + 4 * cap_a,
-                                   (cudaStream_t)stream>>>(
-            (const uint32_t*)ka, cap_a, off_ka, (const uint32_t*)kb, cap_b, steps, (int32_t*)lo);
-    } else {
-        lower_bound_kernel<false><<<(unsigned)blocks, kSearchThreads, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)ka, cap_a, 0, (const uint32_t*)kb, cap_b, steps, (int32_t*)lo);
-    }
+    const unsigned blocks = (unsigned)((cap_b + kThreads - 1) / kThreads);
+    lower_bound_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)ka, cap_a, (const uint32_t*)kb, cap_b, probe_steps(cap_a),
+        (int32_t*)lo);
     return (int)cudaGetLastError();
 }
 

@@ -1,31 +1,16 @@
-// The sort-merge join probe's shared pieces, for its two sources
-// (hash_join.cu, join_probe.cu): the unsigned lower bound, the staging of a
-// build side into shared memory, and the persistent grid.
+// Unsigned lower bound over sorted 32-bit keys, shared by the join kernels
+// (hash_join.cu, join_probe.cu).
 //
-// probe_lower_bound is searchsorted(ka, key, side="left") in unsigned order,
-// as a branchy binary search of `steps` = bit_length(cap_a) guarded steps:
-// the interval [0, cap_a] has cap_a + 1 states, and a converged interval
-// (lo == hi) must not move again. bit_length(cap_a - 1) steps are one short
-// when cap_a is a power of two (the reference's pinned off-by-one). The same
-// code searches a staged copy in shared memory or the build side in device
-// memory: the caller passes either pointer.
-//
-// A build side is staged when its bytes fit kStageBudget: about 100 KB, so
-// that two blocks of the probe kernel, with their tile scratch, fit one
-// SM's 228 KB. Each staged array sits at a shared offset congruent to its
-// device address mod 16 (stage_offset), so that stage_copy moves its body
-// with 16-byte loads and stores and only a head and a tail of < 16 bytes
-// one byte at a time, whatever the tensor's alignment.
+// searchsorted(ka, key, side="left") in unsigned order, as a branchy binary
+// search of `steps` = bit_length(cap_a) guarded steps: the interval
+// [0, cap_a] has cap_a + 1 states, and a converged interval (lo == hi)
+// must not move again. bit_length(cap_a - 1) steps are one short when
+// cap_a is a power of two (the reference's pinned off-by-one). hash_join.cu
+// runs it over a copy of the keys in shared memory or over device memory:
+// the caller passes either pointer.
 #pragma once
 
 #include <cstdint>
-#include <cuda_runtime.h>
-
-// Build-side bytes a block may stage in shared memory (the probe kernel's
-// capA * (5 + 4 * nk); the lower bound's capA * 4).
-constexpr long long kStageBudget = 102400;
-// Blocks a staged kernel's persistent grid puts on each SM.
-constexpr int kStagedBlocksPerSm = 2;
 
 __device__ __forceinline__ int probe_lower_bound(const uint32_t* __restrict__ ka, int cap_a,
                                                  uint32_t key, int steps) {
@@ -42,55 +27,3 @@ __device__ __forceinline__ int probe_lower_bound(const uint32_t* __restrict__ ka
 
 // bit_length(cap_a) for cap_a >= 1: the search's step count.
 inline int probe_steps(int cap_a) { return 32 - __builtin_clz((unsigned)cap_a); }
-
-// The first shared offset at or after `end` that is congruent to `ptr`
-// mod 16.
-inline long long stage_offset(long long end, const void* ptr) {
-    return ((end + 15) & ~15LL) + (long long)((uintptr_t)ptr & 15);
-}
-
-// Copy n bytes from device memory to shared memory, every thread of the
-// block taking part; dst must be congruent to src mod 16 (stage_offset).
-__device__ __forceinline__ void stage_copy(uint8_t* dst, const void* src_v, long long n) {
-    const uint8_t* src = (const uint8_t*)src_v;
-    const int tid = threadIdx.x, nt = blockDim.x;
-    const long long head = min(n, (long long)((16 - ((uintptr_t)src & 15)) & 15));
-    const long long body = (n - head) / 16;
-    const long long tail = n - head - 16 * body;
-    if (tid < head) dst[tid] = src[tid];
-    uint4* d = (uint4*)(dst + head);
-    const uint4* s = (const uint4*)(src + head);
-    long long i = tid;
-    for (; i + 3 * nt < body; i += 4 * nt) {  // four 16-byte loads in flight a thread
-        const uint4 a = s[i], b = s[i + nt], c = s[i + 2 * nt], e = s[i + 3 * nt];
-        d[i] = a;
-        d[i + nt] = b;
-        d[i + 2 * nt] = c;
-        d[i + 3 * nt] = e;
-    }
-    for (; i < body; i += nt) d[i] = s[i];
-    if (tid < tail) dst[head + 16 * body + tid] = src[head + 16 * body + tid];
-}
-
-// One kernel's per-device launch facts, set up at its first launch on each
-// device: it may take up to `max_smem` bytes of dynamic shared memory (the
-// launch itself refuses more), and the device's SM count for its grid.
-struct LaunchSetup {
-    static constexpr int kDevices = 64;
-    bool done[kDevices] = {};
-    int sms[kDevices] = {};
-
-    int sm_count(const void* kernel, int max_smem) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        if (dev < kDevices && done[dev]) return sms[dev];
-        int n = 0;
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-        if (dev < kDevices) {
-            sms[dev] = n;
-            done[dev] = true;
-        }
-        return n;
-    }
-};

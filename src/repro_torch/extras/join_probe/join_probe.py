@@ -3,11 +3,10 @@
 `probe_lower_bound` and `probe_window` replace the functions of the same
 names in ``src/repro/extras/join_probe/join_probe.py``: the lower bound of
 each probe key in the sorted build keys (one thread per probe row, the
-search ``csrc/hash_join.cu`` also runs, from ``csrc/probe.cuh``, over a
-copy in shared memory where the keys fit ``kStageBudget``, else over device
-memory), then each row's ``dup_cap`` window of ``(hit, idx)`` on key
-equality alone (one thread per output element). Exact key verification is
-the caller's, as in the JAX package.
+search ``csrc/hash_join.cu`` also runs, from ``csrc/probe.cuh``), then
+each row's ``dup_cap`` window of ``(hit, idx)`` on key equality alone
+(one thread per output element). Exact key verification is the caller's,
+as in the JAX package.
 
 Keys are uint32 held as int32 bit patterns. A CPU tensor goes to the plain
 version (`repro_torch.extras.join_probe.ref`); a CUDA tensor launches the
@@ -21,19 +20,11 @@ import torch
 
 from repro_torch.extras.join_probe import ref
 from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
-from repro_torch.kernels.hash_join.hash_join import STAGE_BUDGET
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 LOWER_BOUND = CudaKernel("join_probe", "probe_lower_bound", [_P, _I, _P, _L, _P])
 WINDOW = CudaKernel("join_probe", "probe_window", [_P, _I, _P, _P, _L, _I, _P, _P])
-
-
-def lower_bound_route(cap_a: int) -> str:
-    """The route `probe_lower_bound`'s kernel takes for ``cap_a`` build keys:
-    ``"shared"`` (staged in shared memory) or ``"global"`` (searched in
-    device memory)."""
-    return "shared" if 4 * cap_a <= STAGE_BUDGET else "global"
 
 
 def _check_build_side(ka_sorted: torch.Tensor) -> int:

@@ -107,40 +107,26 @@ class CudaKernel:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
         self.launches = 0
         self._fn = None
-        self._stream = None
         CudaKernel.registry.append(self)
-
-    def _bind(self) -> None:
-        fn = getattr(load(self.source), self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        self._stream = current_stream_reader()
-        self._fn = fn
 
     def __call__(self, *args) -> None:
         if self._fn is None:
-            self._bind()
-        err = self._fn(*args, self._stream())
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        # PyTorch's current stream, read anew at each call, so that a launch
+        # lands on the stream of torch.cuda.stream(s) or of a graph capture.
+        # The raw accessor gives torch.cuda.current_stream().cuda_stream
+        # without building a Stream object, the largest piece of a small
+        # kernel's host path.
+        stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+        err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.symbol} failed to launch: error {err}"
             )
         self.launches += 1
-
-
-def current_stream_reader():
-    """A function that returns the handle of PyTorch's current CUDA stream
-    on the current device, read anew at each call (so a launch lands on the
-    stream of ``torch.cuda.stream(s)`` or of a graph capture). It is the
-    value of ``torch.cuda.current_stream().cuda_stream``, read through
-    PyTorch's raw-stream accessor (the one its compiled kernels use), which
-    builds no ``Stream`` object: that object was the largest piece of a
-    small kernel's host path."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:  # a PyTorch without the accessor
-        return lambda: torch.cuda.current_stream().cuda_stream
-    device = torch._C._cuda_getDevice
-    return lambda: raw(device())
 
 
 def launch_counts() -> dict[str, int]:

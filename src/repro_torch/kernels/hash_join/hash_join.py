@@ -4,10 +4,11 @@ Replaces ``hash_join_probe`` of ``src/repro/kernels/hash_join/hash_join.py``:
 each probe row's lower bound in the sorted build keys, then its ``dup_cap``
 window with exact verification. Bound by the bytes of its ``(capB,
 dup_cap)`` outputs. The kernel has two routes, chosen by size in its C
-entry point (`route` says which): where the build side's ``capA · (5 + 4·nk)``
-bytes fit ``kStageBudget`` of ``csrc/probe.cuh`` (``STAGE_BUDGET``), each block
-of a persistent grid copies it into shared memory once, as the TPU kernel
-holds it in VMEM; above that the same kernel reads it from device memory.
+entry point (`last_route` says which the last launch took): where the build
+side's ``capA · (5 + 4·nk)`` bytes fit ``kStageBudget`` of
+``csrc/hash_join.cu`` (100 KB), each block of a persistent grid copies it
+into shared memory once, as the TPU kernel holds it in VMEM; above that the
+same kernel reads it from device memory.
 Either way one thread a row searches a tile of probe rows, and the tile's
 ``hit`` and ``idx`` are written as one contiguous range of 16-byte stores.
 
@@ -17,11 +18,10 @@ a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import re
 
 import torch
 
-from repro_torch.kernels.cuda import CSRC, CudaKernel, check, on_cpu
+from repro_torch.kernels.cuda import CudaKernel, check, load, on_cpu
 from repro_torch.kernels.hash_join import ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -30,15 +30,13 @@ PROBE = CudaKernel(
     "hash_join", "hash_join_probe", [_P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P]
 )
 
-# the build side's shared-memory budget in bytes, read from the one place it is named
-STAGE_BUDGET = int(re.search(r"kStageBudget = (\d+);", (CSRC / "probe.cuh").read_text())[1])
 
-
-def route(cap_a: int, nk: int) -> str:
-    """The route the kernel takes for a build side of ``cap_a`` rows and
-    ``nk`` key columns: ``"shared"`` (staged in shared memory) or
-    ``"global"`` (read from device memory)."""
-    return "shared" if cap_a * (5 + 4 * nk) <= STAGE_BUDGET else "global"
+def last_route() -> str:
+    """The route of this process's last launch of the kernel that wrote
+    anything, as its C entry point recorded it: ``"shared"`` (the build side
+    staged in shared memory), ``"global"`` (read from device memory) or
+    ``"none"`` (no launch yet)."""
+    return ("none", "global", "shared")[load("hash_join").hash_join_probe_last_route() + 1]
 
 
 def hash_join_probe(

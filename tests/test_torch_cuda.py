@@ -137,8 +137,9 @@ def probe_inputs(dev, cap_a, cap_b, nk, seed):
 
 
 # (capA, capB, nk, dup_cap, route): the build side's capA * (5 + 4 nk) bytes
-# against the 102,400-byte budget; capB mostly not a multiple of the
-# kernel's 256-row tile; dup_cap not a multiple of 16, and above capA
+# against the 102,400-byte budget, the route as the C entry point recorded
+# it; capB mostly not a multiple of the kernel's 512-row tile; dup_cap not a
+# multiple of 16, and above capA
 @pytest.mark.parametrize("cap_a,cap_b,nk,dup,route", [
     (8, 1, 1, 6, "shared"), (1000, 3000, 2, 16, "shared"), (1 << 16, 1 << 14, 3, 64, "global"),
     (8192, 262_144, 1, 64, "shared"),   # the matcher's largest join
@@ -149,8 +150,8 @@ def probe_inputs(dev, cap_a, cap_b, nk, seed):
 def test_hash_join_probe(dev, cap_a, cap_b, nk, dup, route):
     from repro_torch.kernels.hash_join import hash_join
 
-    assert hash_join.route(cap_a, nk) == route
     same("hash_join_probe", probe_inputs(dev, cap_a, cap_b, nk, cap_a), dict(dup_cap=dup))
+    assert hash_join.last_route() == route
 
 
 @pytest.mark.parametrize("W", [1, 7, 117962])
@@ -289,13 +290,10 @@ def test_segment_mp(dev, E, d, n, hub):
     assert not got[untouched].any()
 
 
-# (capA, capB, dup_cap): the lower bound stages capA * 4 bytes up to the
-# 102,400-byte budget (25,600 keys) and searches device memory above it
 @pytest.mark.parametrize("cap_a,cap_b,dup", [(8, 7, 6), (3, 4, 5), (8192, 262_144, 64),
-                                             (1 << 16, 1000, 3), (25_600, 5000, 5),
-                                             (25_601, 5000, 5), (100, 999, 100)])
+                                             (1 << 16, 1000, 3), (100, 999, 100)])
 def test_join_probe(dev, cap_a, cap_b, dup):
-    from repro_torch.extras.join_probe import join_probe, ops, ref
+    from repro_torch.extras.join_probe import ops, ref
 
     rng = np.random.default_rng(cap_a + dup)
     ka = np.sort(rng.integers(0, 2**32, cap_a, dtype=np.uint64) % (cap_a // 2 + 1) * 977
@@ -303,7 +301,6 @@ def test_join_probe(dev, cap_a, cap_b, dup):
     ka[-1] = 0xFFFFFFFF
     kb = np.concatenate([ka[rng.integers(0, cap_a, cap_b - 2)], [0, 0xFFFFFFFF]]).astype(np.uint32)
     a, b = on(dev, ka), on(dev, kb)
-    assert join_probe.lower_bound_route(cap_a) == ("shared" if cap_a <= 25_600 else "global")
     c0 = cuda.launch_counts()
     lo = ops.lower_bound(a, b)
     hit, idx = ops.window(a, b, lo, dup_cap=dup)
@@ -316,12 +313,14 @@ def test_join_probe(dev, cap_a, cap_b, dup):
     assert torch.equal(lo, lo_p) and torch.equal(hit, hit_p) and torch.equal(idx, idx_p)
 
 
-@pytest.mark.parametrize("cap_a", [8192, 30_000], ids=["shared", "global"])
-def test_probe_kernels_launch_on_the_current_stream(dev, cap_a):
+# the build side's capA * (5 + 4 * 2) bytes: 53,248 and 390,000
+@pytest.mark.parametrize("cap_a,route", [(4096, "shared"), (30_000, "global")],
+                         ids=["shared", "global"])
+def test_probe_kernels_launch_on_the_current_stream(dev, cap_a, route):
     """Inside ``torch.cuda.stream(s)`` and inside a captured CUDA graph the
-    two probe kernels land on that stream: a side stream's results, and a
-    graph's replay on inputs changed after the capture, equal the plain
-    versions."""
+    two probe kernels land on that stream (``hash_join_probe`` on each of
+    its routes): a side stream's results, and a graph's replay on inputs
+    changed after the capture, equal the plain versions."""
     from repro_torch.extras.join_probe import ops
     from repro_torch.extras.join_probe import ref as probe_ref
     from repro_torch.kernels.hash_join import hash_join
@@ -339,10 +338,12 @@ def test_probe_kernels_launch_on_the_current_stream(dev, cap_a):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        assert cuda.current_stream_reader()() == side.cuda_stream
+        # the read CudaKernel passes to every launch
+        assert torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()) == side.cuda_stream
         assert side.cuda_stream != torch.cuda.default_stream().cuda_stream
         lo, (hit, idx) = run()
     side.synchronize()
+    assert hash_join.last_route() == route
     (lo_p, (hit_p, idx_p)) = want()
     assert torch.equal(lo, lo_p) and torch.equal(hit, hit_p) and torch.equal(idx, idx_p)
 
