@@ -415,6 +415,7 @@ def recording_kernels():
     class Recording(Kernels):
         def __init__(self):
             self.calls = {}
+            self.masks = []  # (length, data_ptr mod 16) of every mask_to_host call
             self.expands = []  # (args, kw, cnt) of every stwig_expand call
             # ((ids, valid, nwords), words) of every bitset_build call: a
             # round's (n, width) columns and their (width, nwords) bitsets
@@ -427,6 +428,10 @@ def recording_kernels():
         def bitset_pack(self, mask):
             self._keep("bitset_pack", mask.numel(), (mask,), {})
             return super().bitset_pack(mask)
+
+        def mask_to_host(self, mask):
+            self.masks.append((mask.numel(), mask.data_ptr() % 16))
+            return super().mask_to_host(mask)
 
         def bitset_lookup(self, words, ids):
             self._keep("bitset_lookup", ids.numel(), (words, ids), {})
@@ -699,11 +704,75 @@ KERNEL_INFO = {
 }
 
 
-def phase_kernels(recorded, launches, dev) -> list[dict]:
+def pack_checks(cuda_k, plain, dev) -> str:
+    """``bitset_pack`` off the main path's shapes: masks of ragged lengths
+    through ``mask_to_host`` (the only caller that passes them), equal to
+    the mask itself, and masks whose data start off 16-byte alignment,
+    through the op (whole words) and through ``mask_to_host`` (ragged);
+    bit-exact against the plain version. Returns what it checked."""
+    gen = np.random.default_rng(4)
+    lengths = (1, 31, 33, 1000, 4097, 786_427)
+    for n in lengths:
+        m = torch.from_numpy(gen.random(n) < 0.4).to(dev)
+        if not np.array_equal(cuda_k.mask_to_host(m), m.cpu().numpy()):
+            fail(f"mask_to_host of a {n}-flag mask differs from the mask")
+    base = torch.from_numpy(gen.random(4096 + 64) < 0.4).to(dev)
+    offsets = (1, 3, 4, 8)
+    for off in offsets:
+        whole = base[off:off + 4096]
+        if not torch.equal(cuda_k.bitset_pack(whole), plain.bitset_pack(whole)):
+            fail(f"bitset_pack of a mask at data_ptr mod 16 = {whole.data_ptr() % 16} differs "
+                 "from its plain version")
+        ragged = base[off:off + 1001]
+        if not np.array_equal(cuda_k.mask_to_host(ragged), ragged.cpu().numpy()):
+            fail(f"mask_to_host of a ragged mask at data_ptr mod 16 = {ragged.data_ptr() % 16} "
+                 "differs from the mask")
+    torch.cuda.synchronize()
+    return (f"ragged lengths {list(lengths)} through mask_to_host, and starts at data_ptr mod 16 "
+            f"= {[base[o:].data_ptr() % 16 for o in offsets]} (4,096 flags through the op, "
+            f"1,001 through mask_to_host)")
+
+
+def mask_host_path(cuda_k, mask, dev) -> str:
+    """``mask_to_host``'s host path on the main path's largest mask, step by
+    step, in µs a call (`host_us`); the pad runs only for a ragged mask, so
+    the whole path is also timed 5 flags short of whole words."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.bitset import bitset, ref
+
+    n = mask.numel()
+    n_w = ref.n_words(n)
+    ragged = mask[:n - 5]
+    words = torch.empty(n_w, dtype=torch.int32, device=dev)
+    cuda_k.bitset_pack(mask)  # binds the entry point
+    raw = bitset.PACK._fn
+    host_words = words.cpu().numpy()
+
+    def stream():  # the read CudaKernel passes to every launch
+        return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+    steps = {
+        "mask_to_host (the whole path)": lambda: cuda_k.mask_to_host(mask),
+        "mask_to_host, 5 flags short of whole words": lambda: cuda_k.mask_to_host(ragged),
+        "the pad of the ragged mask (torch.cat with new_zeros)":
+            lambda: torch.cat([ragged, ragged.new_zeros(5)]),
+        "the wrapper's checks": lambda: (cuda.on_cpu(mask), cuda.check(mask, "mask", torch.bool, 1),
+                                         ref.n_words(mask.shape[0])),
+        "torch.empty (the words)": lambda: torch.empty(n_w, dtype=torch.int32, device=dev),
+        "the ctypes call with its launch": lambda: raw(mask.data_ptr(), n_w, words.data_ptr(),
+                                                       stream()),
+        ".cpu() of the words": lambda: words.cpu(),
+        "unpack_bitset on the host": lambda: ref.unpack_bitset(host_words, n),
+    }
+    return ", ".join(f"{k} {host_us(f):.3f}" for k, f in steps.items())
+
+
+def phase_kernels(recorder, launches, dev) -> list[dict]:
     from repro_torch.core.backend import get_kernels
 
     from repro_torch.kernels.hash_join.hash_join import last_route
 
+    recorded = recorder.calls
     cuda_k, plain = get_kernels("cuda"), get_kernels("torch")
     cases = {op: [] for op in MATCHER_KERNELS}
     for op, args, kw, *route in adversarial_cases(dev):
@@ -733,6 +802,16 @@ def phase_kernels(recorded, launches, dev) -> list[dict]:
             f"{len(cases[op])} adversarial case(s); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
             f"{work(op, args, kw)[0]} B), main-path launches {launches[op]}")
+        if op.startswith("bitset_"):
+            log(f"[kernels] {op}: device time by a CUDA graph of 20 calls "
+                f"{graph_ms(lambda: getattr(cuda_k, op)(*args, **kw)):.4f} ms a call")
+        if op == "bitset_pack":
+            log(f"[kernels] bitset_pack: the main path's {len(recorder.masks)} mask_to_host "
+                f"calls took masks of (length, data_ptr mod 16) {recorder.masks}; bit-exact on "
+                f"{pack_checks(cuda_k, plain, dev)}")
+            log("[kernels] mask_to_host's host path on the main path's largest mask, µs a call "
+                "(perf_counter_ns over 2,000 calls, a sync every 100): "
+                + mask_host_path(cuda_k, args[0], dev))
         if op == "hash_join_probe":
             log(f"[kernels] hash_join_probe: the main-path call took the {routes[0]!r} route "
                 f"(build side {args[1].shape[0]} x (5 + 4 x {args[1].shape[1]}) B); the "
@@ -858,7 +937,9 @@ def phase_ops(recorder) -> list[dict]:
         shapes = [tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
         log(f"[ops] {op} on {what} {shapes}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-            f"{work(op, args, {})[0] / 1e6:.1f} MB), launches {counts[op]}")
+            f"{work(op, args, {})[0] / 1e6:.1f} MB), launches {counts[op]}"
+            + ("" if op != "bitset_unpack" else f"; device time by a CUDA graph of 20 calls "
+               f"{graph_ms(lambda: cuda_k.bitset_unpack(*args)):.4f} ms a call"))
         if what != "main-path input" or op == "bitset_unpack":
             rows.append(row)
     return rows
@@ -1257,11 +1338,25 @@ def probe_cases(dev):
 
     big = np.sort(rng.integers(0, 2**32, 64, dtype=np.uint64)).astype(np.uint32)
     big[-4:] = 0xFFFFFFFF
+
+    def runs(cap_a, cap_b):  # duplicate runs, probe keys half from them
+        ka = (np.sort(rng.integers(0, cap_a // 3 + 1, cap_a)) * 977).astype(np.uint32)
+        ka[-1] = 0xFFFFFFFF
+        kb = np.where(rng.random(cap_b) < 0.5, ka[rng.integers(0, cap_a, cap_b)],
+                      rng.integers(0, 2**32, cap_b, dtype=np.uint64).astype(np.uint32))
+        return t(ka), t(kb)
+
     return [
         ("keys >= 2**31", t(big), t(np.concatenate([big[::3], [0, 0xFFFFFFFF, 2**31,
                                                                2**31 - 1, 2**31 + 1]])), 4),
         ("pow2 capA, full run", t([0, 5, 5, 5, 5, 5, 5, 9]), t([5, 9, 0, 4, 6, 10, 0xFFFFFFFF]), 6),
         ("dup_cap > capA", t([3, 3, 7]), t([3, 7, 1, 8]), 5),
+        # dup_cap 1, 17 and 67 (not multiples of 16), capB 1, 1,003 and
+        # 16,387 (not multiples of 16)
+        ("dup_cap 1, capB 1,003", *runs(8192, 1003), 1),
+        ("dup_cap 17, capB 1,003", *runs(8192, 1003), 17),
+        ("dup_cap 67, capB 16,387", *runs(8192, 16_387), 67),
+        ("dup_cap 17, capB 1", *runs(300, 1), 17),
     ]
 
 
@@ -1304,7 +1399,7 @@ def phase_probe(dev, probe_call) -> list[dict]:
         fail("window hits verified by validity and key columns differ from hash_join_probe")
     log(f"[probe] lower_bound + window on the query path's largest hash_join_probe input "
         f"(capA {ka.numel()}, capB {kb.numel()}, dup {dup}): bit-exact against plain there and "
-        f"on {len(cases)} adversarial cases; verified hits "
+        f"on {len(cases)} adversarial cases ({'; '.join(c[0] for c in cases)}); verified hits "
         f"({int(h_ref.sum())}) and idx equal hash_join_probe's; launches "
         f"{ {k: counts[k] for k in ('probe_lower_bound', 'probe_window')} }")
     # ---- the lower bound's host path, step by step --------------------------
@@ -1807,7 +1902,7 @@ def main() -> None:
     log("[torch] rows and stream pages identical to kernels='cuda'")
 
     # ---- phase 5: each kernel against its plain version --------------------
-    kernel_rows = phase_kernels(recorder.calls, counts, dev)
+    kernel_rows = phase_kernels(recorder, counts, dev)
 
     # ---- phase 6: bitset_unpack and candidate_filter on the main path's data
     kernel_rows += phase_ops(recorder)
