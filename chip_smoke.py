@@ -39,10 +39,19 @@ result lines are printed only when every phase passed):
      one exactly at it, one row above it), dup_cap 1, 5 and 100, capB not a
      multiple of its tile, nk 3; the route each call took, as the kernel's
      C entry point recorded it, must be the one its case names, and the
-     line names them all.
+     line names them all. ``bitset_pack`` runs as the matcher calls it,
+     through ``mask_to_host`` (``pack_flags``: any length; its plain version
+     pads the mask), on the main path's largest mask, on masks of ragged
+     lengths and on masks that start off 16-byte alignment (the op, whole
+     words, too; and the op must refuse a ragged mask); the line lists the
+     main path's masks, and ``mask_to_host``'s host path is timed step by
+     step (``perf_counter_ns``, as ``[probe]`` times the lower bound's).
      Kernel and plain times are CUDA-event medians of 10 runs after a
-     warm-up; ``hash_join_probe``'s device time also from a CUDA graph of
-     20 calls. ``stwig_expand``'s bound
+     warm-up; the device time of ``hash_join_probe`` and of the bitset
+     kernels (``bitset_unpack``'s in phase 6) also from a CUDA graph of
+     20 calls, with the eager call's parts beside it (`eager_times`: host
+     µs, 100 calls back to back, a call behind queued work).
+     ``stwig_expand``'s bound
      counts the bytes it must read when it reads lazily (as
      ``candidate_filter``'s does), the all-inputs figure printed beside it,
      with the device time of each of its two kernels from ``torch.profiler``;
@@ -88,13 +97,15 @@ result lines are printed only when every phase passed):
      ``hash_join_probe`` call, counted (each > 0), bit-exact against their
      plain versions there and on adversarial cases (keys ≥ 2^31, a
      power-of-two build side whose duplicate run fills the window,
-     ``dup_cap > capA``), and in agreement with ``hash_join_probe``: the
+     ``dup_cap > capA``, dup_cap 1, 17 and 67 with capB 1, 1,003 and
+     16,387), and in agreement with ``hash_join_probe``: the
      window's hits with both rows valid and equal key columns are its
      ``hit``, and the ``idx`` arrays are equal. Then the lower bound's host
      path step by step (``perf_counter_ns`` over 2,000 calls each), its
      CUDA-event time and ``torch.searchsorted``'s as medians of 10 runs (as
      every row) and also in turns (100 calls a turn), and each kernel's
-     device time from a CUDA graph of 20 calls and from ``torch.profiler``;
+     device time from a CUDA graph of 20 calls and from ``torch.profiler``,
+     with `eager_times` beside it;
  11. lm — gemma-2b at its published widths and full depth (18 layers,
      d_model 2048, 8 query heads on 1 kv head, head_dim 256, d_ff 16384
      GeGLU, vocab 256,000 tied; 2,506,172,416 parameters, bf16; random
@@ -247,6 +258,34 @@ def host_us(fn, n: int = 2000) -> float:
         total += time.perf_counter_ns() - t0
     torch.cuda.synchronize()
     return total / n / 1e3
+
+
+def eager_times(fn) -> str:
+    """Where a call's CUDA-event time goes: the host µs a call (`host_us`),
+    the ms a call of 100 calls between two events (launches queue ahead of
+    the card, so this is the device's time in eager mode), and the median
+    ms of 10 single calls each timed behind ~0.2 ms of queued work (the
+    start event then waits on the card, not on the host path)."""
+    spin = torch.empty(1 << 26, device="cuda")
+    one = []
+    for _ in range(10):
+        spin.mul_(1.0)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        one.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(100):
+        fn()
+    b.record()
+    b.synchronize()
+    return (f"host {host_us(fn):.3f} µs a call; 100 calls back to back "
+            f"{a.elapsed_time(b) / 100:.4f} ms a call; a call behind queued work "
+            f"{statistics.median(one):.4f} ms")
 
 
 def device_profile(fn, reps: int = 3):
@@ -425,11 +464,8 @@ def recording_kernels():
             if size > self.calls.get(op, (-1,))[0]:
                 self.calls[op] = (size, args, kw)
 
-        def bitset_pack(self, mask):
+        def mask_to_host(self, mask):  # the matcher's only bitset_pack caller
             self._keep("bitset_pack", mask.numel(), (mask,), {})
-            return super().bitset_pack(mask)
-
-        def mask_to_host(self, mask):
             self.masks.append((mask.numel(), mask.data_ptr() % 16))
             return super().mask_to_host(mask)
 
@@ -583,7 +619,7 @@ def work(op, args, kw) -> tuple[int, float]:
         return nbytes(ids, valid) + 4 * width * nwords, 6.0 * ids.numel()
     if op == "bitset_pack":
         (mask,) = args
-        return nbytes(mask) + mask.numel() // 8, 2.0 * mask.numel()
+        return nbytes(mask) + 4 * -(-mask.numel() // 32), 2.0 * mask.numel()
     if op == "stwig_expand":
         # read lazily, as candidate_filter's entry counts: every root_ok and
         # indptr, the labels of root_ok edges, the dst ids of edges whose
@@ -706,16 +742,24 @@ KERNEL_INFO = {
 
 def pack_checks(cuda_k, plain, dev) -> str:
     """``bitset_pack`` off the main path's shapes: masks of ragged lengths
-    through ``mask_to_host`` (the only caller that passes them), equal to
-    the mask itself, and masks whose data start off 16-byte alignment,
-    through the op (whole words) and through ``mask_to_host`` (ragged);
-    bit-exact against the plain version. Returns what it checked."""
+    through ``mask_to_host`` (the only caller that passes them: its words
+    bit-exact against the plain version of the zero-padded mask, its host
+    bools equal to the mask), and masks whose data start off 16-byte
+    alignment, through the op (whole words) and through ``mask_to_host``
+    (ragged). The op refuses a ragged mask. Returns what it checked."""
+    from repro_torch.kernels.bitset import bitset, ref
+
     gen = np.random.default_rng(4)
+
+    def ragged_check(m, what):
+        if not torch.equal(bitset.pack_flags(m), ref.pack_padded_reference(m)):
+            fail(f"bitset_pack of {what} differs from its plain version (the padded mask)")
+        if not np.array_equal(cuda_k.mask_to_host(m), m.cpu().numpy()):
+            fail(f"mask_to_host of {what} differs from the mask")
+
     lengths = (1, 31, 33, 1000, 4097, 786_427)
     for n in lengths:
-        m = torch.from_numpy(gen.random(n) < 0.4).to(dev)
-        if not np.array_equal(cuda_k.mask_to_host(m), m.cpu().numpy()):
-            fail(f"mask_to_host of a {n}-flag mask differs from the mask")
+        ragged_check(torch.from_numpy(gen.random(n) < 0.4).to(dev), f"a {n}-flag mask")
     base = torch.from_numpy(gen.random(4096 + 64) < 0.4).to(dev)
     offsets = (1, 3, 4, 8)
     for off in offsets:
@@ -723,20 +767,25 @@ def pack_checks(cuda_k, plain, dev) -> str:
         if not torch.equal(cuda_k.bitset_pack(whole), plain.bitset_pack(whole)):
             fail(f"bitset_pack of a mask at data_ptr mod 16 = {whole.data_ptr() % 16} differs "
                  "from its plain version")
-        ragged = base[off:off + 1001]
-        if not np.array_equal(cuda_k.mask_to_host(ragged), ragged.cpu().numpy()):
-            fail(f"mask_to_host of a ragged mask at data_ptr mod 16 = {ragged.data_ptr() % 16} "
-                 "differs from the mask")
+        ragged_check(base[off:off + 1001], f"a ragged mask at data_ptr mod 16 = "
+                     f"{base[off:].data_ptr() % 16}")
+    try:
+        cuda_k.bitset_pack(base[:33])
+    except ValueError:
+        pass
+    else:
+        fail("the bitset_pack op took a mask of 33 flags")
     torch.cuda.synchronize()
     return (f"ragged lengths {list(lengths)} through mask_to_host, and starts at data_ptr mod 16 "
             f"= {[base[o:].data_ptr() % 16 for o in offsets]} (4,096 flags through the op, "
-            f"1,001 through mask_to_host)")
+            f"1,001 through mask_to_host); the op refuses 33 flags")
 
 
 def mask_host_path(cuda_k, mask, dev) -> str:
     """``mask_to_host``'s host path on the main path's largest mask, step by
-    step, in µs a call (`host_us`); the pad runs only for a ragged mask, so
-    the whole path is also timed 5 flags short of whole words."""
+    step, in µs a call (`host_us`); also the whole path 5 flags short of
+    whole words, and the padded copy that the kernel's ragged tail made
+    unneeded (``mask_to_host`` made it for a ragged mask)."""
     from repro_torch.kernels import cuda
     from repro_torch.kernels.bitset import bitset, ref
 
@@ -754,12 +803,12 @@ def mask_host_path(cuda_k, mask, dev) -> str:
     steps = {
         "mask_to_host (the whole path)": lambda: cuda_k.mask_to_host(mask),
         "mask_to_host, 5 flags short of whole words": lambda: cuda_k.mask_to_host(ragged),
-        "the pad of the ragged mask (torch.cat with new_zeros)":
+        "the padded copy no longer made (torch.cat with new_zeros)":
             lambda: torch.cat([ragged, ragged.new_zeros(5)]),
-        "the wrapper's checks": lambda: (cuda.on_cpu(mask), cuda.check(mask, "mask", torch.bool, 1),
-                                         ref.n_words(mask.shape[0])),
-        "torch.empty (the words)": lambda: torch.empty(n_w, dtype=torch.int32, device=dev),
-        "the ctypes call with its launch": lambda: raw(mask.data_ptr(), n_w, words.data_ptr(),
+        "the wrapper's checks": lambda: (cuda.on_cpu(mask), cuda.check(mask, "mask", torch.bool, 1)),
+        "torch.empty (the words)": lambda: torch.empty(ref.n_words(mask.shape[0]),
+                                                       dtype=torch.int32, device=dev),
+        "the ctypes call with its launch": lambda: raw(mask.data_ptr(), n, words.data_ptr(),
                                                        stream()),
         ".cpu() of the words": lambda: words.cpu(),
         "unpack_bitset on the host": lambda: ref.unpack_bitset(host_words, n),
@@ -772,8 +821,14 @@ def phase_kernels(recorder, launches, dev) -> list[dict]:
 
     from repro_torch.kernels.hash_join.hash_join import last_route
 
+    from repro_torch.kernels.bitset import bitset, ref
+
     recorded = recorder.calls
     cuda_k, plain = get_kernels("cuda"), get_kernels("torch")
+    # each op as the main path calls it: bitset_pack through mask_to_host's
+    # pack_flags (any length), whose plain version pads the mask
+    fns = {op: (getattr(cuda_k, op), getattr(plain, op)) for op in MATCHER_KERNELS}
+    fns["bitset_pack"] = (bitset.pack_flags, ref.pack_padded_reference)
     cases = {op: [] for op in MATCHER_KERNELS}
     for op, args, kw, *route in adversarial_cases(dev):
         cases[op].append((args, kw, route[0] if route else None))
@@ -783,19 +838,20 @@ def phase_kernels(recorder, launches, dev) -> list[dict]:
             fail(f"{op}: the main path never called it")
         _, args, kw = recorded[op]
         err, routes = 0, []
+        kernel, plain_fn = fns[op]
         for a, k, want in [(args, kw, None)] + cases[op]:
-            got = getattr(cuda_k, op)(*a, **k)
+            got = kernel(*a, **k)
             if op == "hash_join_probe":  # the route the C entry point launched
                 routes.append(last_route())
                 if want is not None and routes[-1] != want:
                     fail(f"hash_join_probe on a build side of {tuple(a[1].shape)} took the "
                          f"{routes[-1]!r} route, not {want!r}")
-            err = max(err, max_abs_err(got, getattr(plain, op)(*a, **k)))
+            err = max(err, max_abs_err(got, plain_fn(*a, **k)))
         torch.cuda.synchronize()
         if err != 0:
             fail(f"{op}: kernel differs from its plain version (max abs err {err})")
-        ms = time_ms(lambda: getattr(cuda_k, op)(*args, **kw))
-        plain_ms = time_ms(lambda: getattr(plain, op)(*args, **kw))
+        ms = time_ms(lambda: kernel(*args, **kw))
+        plain_ms = time_ms(lambda: plain_fn(*args, **kw))
         rows.append(kernel_row(op, args, kw, launches[op], err, ms, plain_ms))
         shapes = [tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
         log(f"[kernels] {op}: bit-exact on main-path input {shapes} {kw} and "
@@ -804,7 +860,8 @@ def phase_kernels(recorder, launches, dev) -> list[dict]:
             f"{work(op, args, kw)[0]} B), main-path launches {launches[op]}")
         if op.startswith("bitset_"):
             log(f"[kernels] {op}: device time by a CUDA graph of 20 calls "
-                f"{graph_ms(lambda: getattr(cuda_k, op)(*args, **kw)):.4f} ms a call")
+                f"{graph_ms(lambda: kernel(*args, **kw)):.4f} ms a call; "
+                f"{eager_times(lambda: kernel(*args, **kw))}")
         if op == "bitset_pack":
             log(f"[kernels] bitset_pack: the main path's {len(recorder.masks)} mask_to_host "
                 f"calls took masks of (length, data_ptr mod 16) {recorder.masks}; bit-exact on "
@@ -818,6 +875,7 @@ def phase_kernels(recorder, launches, dev) -> list[dict]:
                 f"adversarial cases took {routes[1:]}, as the C entry point recorded them; "
                 f"device time by a CUDA graph of 20 calls "
                 f"{graph_ms(lambda: cuda_k.hash_join_probe(*args, **kw)):.4f} ms a call; "
+                f"{eager_times(lambda: cuda_k.hash_join_probe(*args, **kw))}; "
                 f"{profile_line(device_profile(lambda: cuda_k.hash_join_probe(*args, **kw), 10))}")
             if not {"shared", "global"} <= set(routes):
                 fail(f"hash_join_probe's checks took the routes {routes}, not both")
@@ -1454,6 +1512,7 @@ def phase_probe(dev, probe_call) -> list[dict]:
             f"{work(op, args, kw)[0] / 1e6:.2f} MB), launches {counts[op]}; device time by a "
             f"CUDA graph of 20 calls {graph_ms(fn):.4f} ms a call"
             + ("" if lib is None else f" (library {graph_ms(lib):.4f})")
+            + f"; {eager_times(fn)}"
             + f"; kernel alone: {profile_line(device_profile(fn, reps=10))}"
             + ("" if lib is None else f"; library alone: {profile_line(device_profile(lib, 10))}"))
     return rows

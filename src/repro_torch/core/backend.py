@@ -199,8 +199,9 @@ class Kernels:
 
     # ------------------------------------------------------------ host
     def mask_to_host(self, mask: torch.Tensor) -> np.ndarray:
-        """A device bool mask as a host numpy array, moved as packed words."""
-        return _bitset.mask_to_host(self.bitset_pack, mask)
+        """A device bool mask of any length as a host numpy array, moved as
+        packed words."""
+        return _bitset.mask_to_host(_bitset_ref.pack_padded_reference, mask)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"<Kernels {self.name!r}>"
@@ -213,6 +214,9 @@ class CudaKernels(Kernels):
 
     def bitset_pack(self, mask):
         return _bitset.bitset_pack(mask)
+
+    def mask_to_host(self, mask):
+        return _bitset.mask_to_host(_bitset.pack_flags, mask)
 
     def bitset_lookup(self, words, ids):
         return _bitset.bitset_lookup(words, ids)

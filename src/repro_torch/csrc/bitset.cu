@@ -18,7 +18,14 @@
 // (row, column) pair, reading the ids row-major and coalesced, does
 // atomicOr into its column's words. At ~2 MB a round it is bound by its
 // launch, so one launch a round replaces one a column.
-// pack: one warp per word, __ballot_sync gathers 32 bools into the word.
+// pack: one thread per word. Its 32 flag bytes come in as two 16-byte
+// streaming loads; each 4-byte lane becomes 4 bits (a SIMD byte compare
+// with zero, then one multiply gathers the four 0/1 bytes into a nibble),
+// and one 4-byte store writes the word, a warp 128 contiguous bytes. The
+// entry point takes the number of flags, not of words: flags past the end
+// of the mask read as zero in the last word, so a ragged mask needs no
+// padded copy. The last word, and every word of a mask whose data start
+// off 16-byte alignment (a slice), read their bytes one at a time.
 // unpack: the output (32 bytes per word) is 8 times the input, so the
 // stores are what count: one thread per 4 bits writes its 4 bools as one
 // 4-byte store, a warp 128 contiguous bytes; the word read is shared by 8
@@ -58,13 +65,33 @@ __global__ void build_kernel(const int32_t* __restrict__ ids,
     atomicOr(&words[(i % width) * nwords + (id >> 5)], 1u << (id & 31));
 }
 
-__global__ void pack_kernel(const uint8_t* __restrict__ mask, long long n_words,
-                            uint32_t* __restrict__ words) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    long long w = i >> 5;
-    if (w >= n_words) return;  // whole warps leave together: blockDim % 32 == 0
-    unsigned bits = __ballot_sync(0xffffffffu, mask[i] != 0);
-    if ((threadIdx.x & 31) == 0) words[w] = bits;
+// Four flag bytes (little-endian: flag 0 in the lowest byte) as bits 0-3,
+// each set where its byte is nonzero: the 0/1 bytes at bits 0, 8, 16, 24
+// times kGather land, without carries, on bits 24, 25, 26, 27.
+constexpr uint32_t kLaneOnes = 0x01010101u;
+constexpr uint32_t kGather = 0x01020408u;
+__device__ __forceinline__ uint32_t lane_bits(uint32_t x) {
+    return ((__vcmpne4(x, 0u) & kLaneOnes) * kGather) >> 24;
+}
+
+__device__ __forceinline__ uint32_t vector_bits(uint4 v) {
+    return lane_bits(v.x) | lane_bits(v.y) << 4 | lane_bits(v.z) << 8 | lane_bits(v.w) << 12;
+}
+
+__global__ void pack_kernel(const uint8_t* __restrict__ mask, long long n, long long n_words,
+                            bool aligned, uint32_t* __restrict__ words) {
+    const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (w >= n_words) return;
+    const long long f = 32 * w;  // the word's first flag
+    uint32_t bits = 0;
+    if (aligned && f + 32 <= n) {
+        const uint4* src = (const uint4*)(mask + f);
+        bits = vector_bits(__ldcs(src)) | vector_bits(__ldcs(src + 1)) << 16;
+    } else {
+        const int m = (int)min(32LL, n - f);
+        for (int i = 0; i < m; ++i) bits |= (uint32_t)(mask[f + i] != 0) << i;
+    }
+    words[w] = bits;
 }
 
 __global__ void unpack_kernel(const uint32_t* __restrict__ words, long long n_quads,
@@ -87,7 +114,13 @@ __global__ void cand_filter_kernel(const uint32_t* __restrict__ words, int n_wor
               bit_test(words, n_words, dst_ids[i])) ? 1 : 0;
 }
 
-unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+unsigned blocks_for(long long n, int threads = kThreads) {
+    return (unsigned)((n + threads - 1) / threads);
+}
+
+// 128-thread blocks for pack: the main path's 24,576 words then spread
+// over 192 blocks, past the 132 SMs.
+constexpr int kPackThreads = 128;
 
 }  // namespace
 
@@ -108,10 +141,13 @@ extern "C" int bitset_build(const void* ids, const void* valid, long long n, int
     return (int)cudaGetLastError();
 }
 
-extern "C" int bitset_pack(const void* mask, long long n_words, void* words,
-                           void* stream) {
-    pack_kernel<<<blocks_for(n_words * 32), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)mask, n_words, (uint32_t*)words);
+// n flags → ceil(n / 32) words; launches nothing for n == 0.
+extern "C" int bitset_pack(const void* mask, long long n, void* words, void* stream) {
+    const long long n_words = (n + 31) / 32;
+    if (n_words == 0) return 0;
+    const bool aligned = ((uintptr_t)mask & 15) == 0;
+    pack_kernel<<<blocks_for(n_words, kPackThreads), kPackThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)mask, n, n_words, aligned, (uint32_t*)words);
     return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,9 @@
 //   capA * (5 + 4 * nk) bytes fit kStageBudget (100 KB, so that two blocks
 //   fit an SM; that join's is 72 KB), a block copies ka, a_keys and a_valid
 //   into shared memory once, with 16-byte loads (stage_copy). The grid is
-//   persistent: as many blocks an SM as stay resident together (Grid), each
-//   looping over tiles of probe rows, so the build side crosses from L2
-//   once a block, not once a tile.
+//   persistent: as many blocks an SM as stay resident together (probe.cuh's
+//   Grid), each looping over tiles of probe rows, so the build side crosses
+//   from L2 once a block, not once a tile.
 // * Device-memory route. Above the budget a second instantiation of the
 //   same kernel reads the build side where it lies (its upper search levels
 //   stay in L1 and L2), on a persistent grid sized the same way. The entry
@@ -33,14 +33,17 @@
 //   tile stores.
 // * The tile's outputs are the contiguous ranges [j0, j0 + kRows) * dup_cap
 //   of hit and idx, and threads walk them in order, 16 * kThreads slots a
-//   step: a thread's 16 slots of hit (one 16-byte store) and four 4-slot
-//   pieces of idx (four 16-byte stores, each a warp's 512 contiguous
-//   bytes), as streaming stores. A piece that lies in one row and inside
-//   the build side (nearly all, at dup_cap >= 16) takes a path with no
-//   wrap or clamp; a thread finds each piece's (row, slot) by adding a
-//   constant step to the last (Walk), not by dividing. kRows is a multiple
-//   of 16, so every tile's base is 16-byte aligned in both outputs whatever
-//   dup_cap is, and only the last tile of capB can end in a scalar tail.
+//   step (probe.cuh's store_window, which join_probe.cu's probe_window runs
+//   over its whole output): a thread's 16 slots of hit (one 16-byte store)
+//   and four 4-slot pieces of idx (four 16-byte stores, each a warp's 512
+//   contiguous bytes), as streaming stores. A piece that lies in one row
+//   and inside the build side (nearly all, at dup_cap >= 16) takes a path
+//   with no wrap or clamp; a thread finds each piece's (row, slot) by
+//   adding a constant step to the last (Walk), not by dividing. The slot
+//   test beyond key equality (validity, key columns) is this file's
+//   Verified. kRows is a multiple of 16, so every tile's base is 16-byte
+//   aligned in both outputs whatever dup_cap is, and only the last tile of
+//   capB can end in a scalar tail.
 //
 // The entry point returns cudaGetLastError() after its launch; it refuses
 // outputs that are not 16-byte aligned (the wrapper allocates them) and
@@ -113,106 +116,25 @@ struct Probe {
     int off_tile;                     // the tile scratch's
 };
 
-// (row, slot) of the tile's slot l.
-__device__ __forceinline__ void row_slot(const Probe& p, unsigned long long l, int& r, int& w) {
-    const unsigned long long q = l / (unsigned long long)p.dup_cap;
-    r = (int)q;
-    w = (int)(l - q * (unsigned long long)p.dup_cap);
-}
-
-// A thread's walk over a tile's slots, `stride` slots a step: (row, slot)
-// by one division at its start, then by adding stride's (rows, slots).
-struct Walk {
-    int r, w, dq, dr, dup;
-    __device__ Walk(const Probe& p, unsigned long long first, int stride) : dup(p.dup_cap) {
-        row_slot(p, first, r, w);
-        dq = stride / dup;
-        dr = stride - dq * dup;
-    }
-    __device__ void step() {
-        r += dq;
-        w += dr;
-        if (w >= dup) {
-            w -= dup;
-            ++r;
-        }
+// The per-slot test beyond key equality (probe.cuh's Window test): probe
+// row r of the tile is valid, build row pc is valid and its key columns
+// equal the probe row's.
+struct Verified {
+    const int32_t* a_keys;
+    const uint8_t* a_valid;
+    const int32_t* b_keys;  // the tile's first probe row's
+    const uint8_t* s_bv;
+    int nk;
+    __device__ bool row(int r) const { return s_bv[r]; }
+    __device__ bool slot(int r, int pc) const {
+        if (!a_valid[pc]) return false;
+        const int32_t* ak = a_keys + (long long)pc * nk;
+        const int32_t* bk = b_keys + (long long)r * nk;
+        for (int t = 0; t < nk; ++t)
+            if (ak[t] != bk[t]) return false;
+        return true;
     }
 };
-
-// Build row pc is valid and its key columns equal probe row j's (the
-// hashes are equal already; the caller has checked b_valid).
-__device__ __forceinline__ bool verified(const Probe& p, const int32_t* a_keys,
-                                         const uint8_t* a_valid, int pc, long long j) {
-    if (!a_valid[pc]) return false;
-    const int32_t* ak = a_keys + (long long)pc * p.nk;
-    const int32_t* bk = p.b_keys + j * p.nk;
-    for (int t = 0; t < p.nk; ++t)
-        if (ak[t] != bk[t]) return false;
-    return true;
-}
-
-// hit of build position pos = lo + w for probe row j, whose key and
-// validity are key and bv.
-__device__ __forceinline__ bool slot_hit(const Probe& p, const uint32_t* ka, const int32_t* a_keys,
-                                         const uint8_t* a_valid, long long pos, uint32_t key,
-                                         bool bv, long long j) {
-    return bv && pos < p.cap_a && ka[pos] == key && verified(p, a_keys, a_valid, (int)pos, j);
-}
-
-// Four flags (bits 0-3 of m) as four bytes of 0 or 1, little-endian.
-__device__ __forceinline__ uint32_t flag_bytes(unsigned m) {
-    return ((m & 0xFu) * 0x00204081u) & 0x01010101u;
-}
-
-// hit of the 16 slots that start at the walk's (row, slot), as 16 bytes.
-__device__ __forceinline__ uint4 hit_vector(const Probe& p, const uint32_t* ka,
-                                            const int32_t* a_keys, const uint8_t* a_valid,
-                                            const int32_t* s_lo, const uint32_t* s_key,
-                                            const uint8_t* s_bv, long long j0, int r, int w) {
-    const long long lo = s_lo[r];
-    unsigned m = 0;  // bit i: slot i hits
-    if ((long long)w + 16 <= p.dup_cap && lo + w + 16 <= p.cap_a) {  // one row, all in range
-        if (s_bv[r]) {
-            const uint32_t key = s_key[r];
-            const uint32_t* kp = ka + lo + w;
-#pragma unroll
-            for (int i = 0; i < 16; ++i) m |= (unsigned)(kp[i] == key) << i;
-            for (unsigned rest = m; rest; rest &= rest - 1) {
-                const int i = __ffs(rest) - 1;
-                if (!verified(p, a_keys, a_valid, (int)(lo + w + i), j0 + r)) m &= ~(1u << i);
-            }
-        }
-    } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            if (slot_hit(p, ka, a_keys, a_valid, (long long)s_lo[r] + w, s_key[r], s_bv[r], j0 + r))
-                m |= 1u << i;
-            if (++w == p.dup_cap && i < 15) {  // the next slot is the next row's first
-                w = 0;
-                ++r;
-            }
-        }
-    }
-    return make_uint4(flag_bytes(m), flag_bytes(m >> 4), flag_bytes(m >> 8), flag_bytes(m >> 12));
-}
-
-// idx of the 4 slots that start at the walk's (row, slot).
-__device__ __forceinline__ int4 idx_vector(const Probe& p, const int32_t* s_lo, int r, int w) {
-    const long long pos = (long long)s_lo[r] + w;
-    if ((long long)w + 4 <= p.dup_cap && pos + 4 <= p.cap_a)  // one row, all in range
-        return make_int4((int)pos, (int)pos + 1, (int)pos + 2, (int)pos + 3);
-    int out[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const long long q = (long long)s_lo[r] + w;
-        out[i] = q < p.cap_a ? (int)q : p.cap_a - 1;
-        if (++w == p.dup_cap && i < 3) {
-            w = 0;
-            ++r;
-        }
-    }
-    return make_int4(out[0], out[1], out[2], out[3]);
-}
 
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads) probe_kernel(const Probe p) {
@@ -258,61 +180,15 @@ __global__ void __launch_bounds__(kThreads) probe_kernel(const Probe p) {
         fetch(tile + gridDim.x);
         __syncthreads();
 
-        const unsigned long long n_slots = (unsigned long long)rows * p.dup_cap;
-        uint8_t* hit = p.hit + j0 * p.dup_cap;
-        int32_t* idx = p.idx + j0 * p.dup_cap;
-        // hit 16 slots and idx 4 x 4 slots a thread a step, both over the
-        // same 16 * kThreads slots; one 16-byte store each (a warp's: 512
-        // contiguous bytes), streaming (the outputs outgrow L2, and this
-        // kernel never reads them)
-        const unsigned long long n16 = n_slots / 16, n4 = n_slots / 4;
-        Walk a(p, 16ull * tid, 16 * kThreads);
-        Walk b(p, 4ull * tid, 4 * kThreads);
-        for (unsigned long long v = tid, q = tid; q < n4; v += kThreads, a.step()) {
-            if (v < n16)
-                __stcs((uint4*)(hit + 16 * v),
-                       hit_vector(p, ka, a_keys, a_valid, s_lo, s_key, s_bv, j0, a.r, a.w));
-#pragma unroll
-            for (int m = 0; m < 4; ++m, q += kThreads, b.step())
-                if (q < n4) __stcs((int4*)(idx + 4 * q), idx_vector(p, s_lo, b.r, b.w));
-        }
-        for (unsigned long long l = 16 * n16 + tid; l < n_slots; l += kThreads) {
-            int r, w;
-            row_slot(p, l, r, w);
-            hit[l] = slot_hit(p, ka, a_keys, a_valid, (long long)s_lo[r] + w, s_key[r],
-                              s_bv[r], j0 + r);
-        }
-        for (unsigned long long l = 4 * n4 + tid; l < n_slots; l += kThreads) {
-            int r, w;
-            row_slot(p, l, r, w);
-            const long long pos = (long long)s_lo[r] + w;
-            idx[l] = pos < p.cap_a ? (int)pos : p.cap_a - 1;
-        }
+        // the tile's outputs, 16-byte aligned (kRows % 16 == 0), walked
+        // flat in probe.cuh's 16-byte stores
+        const Window v{ka, p.cap_a, p.dup_cap, s_lo, s_key};
+        const Verified test{a_keys, a_valid, p.b_keys + j0 * p.nk, s_bv, p.nk};
+        store_window<int>(v, test, p.hit + j0 * p.dup_cap, p.idx + j0 * p.dup_cap,
+                          (unsigned long long)rows * p.dup_cap, tid, kThreads);
         __syncthreads();  // the scratch is the next tile's
     }
 }
-
-// A route's persistent grid, set up at its first launch on each device: it
-// lets the kernel take up to max_smem bytes of dynamic shared memory, and
-// its size is the blocks that stay resident together on an SM at that much
-// shared memory, registers counted (the occupancy query), times the SMs.
-struct Grid {
-    static constexpr int kDevices = 64;
-    int blocks[kDevices] = {};
-
-    int size(const void* kernel, int max_smem) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        if (dev < kDevices && blocks[dev]) return blocks[dev];
-        int sms = 0, per_sm = 0;
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, max_smem);
-        const int n = std::max(per_sm, 1) * sms;
-        if (dev < kDevices) blocks[dev] = n;
-        return n;
-    }
-};
 
 Grid staged_grid, global_grid;
 int last_route = -1;  // 1: staged, 0: device memory; -1: none launched yet
@@ -343,12 +219,12 @@ extern "C" int hash_join_probe(const void* ka, const void* a_keys, const void* a
         p.off_valid = (int)stage_offset(end, a_valid);
         end = p.off_valid + cap_a;
         p.off_tile = (int)((end + 15) & ~15LL);
-        const int grid = staged_grid.size((const void*)probe_kernel<true>, kMaxSmem);
+        const int grid = staged_grid.size((const void*)probe_kernel<true>, kThreads, kMaxSmem);
         const unsigned blocks = (unsigned)std::min(n_tiles, (long long)grid);
         last_route = 1;
         probe_kernel<true><<<blocks, kThreads, p.off_tile + kTileScratch, (cudaStream_t)stream>>>(p);
     } else {
-        const int grid = global_grid.size((const void*)probe_kernel<false>, kTileScratch);
+        const int grid = global_grid.size((const void*)probe_kernel<false>, kThreads, kTileScratch);
         const unsigned blocks = (unsigned)std::min(n_tiles, (long long)grid);
         last_route = 0;
         probe_kernel<false><<<blocks, kThreads, kTileScratch, (cudaStream_t)stream>>>(p);

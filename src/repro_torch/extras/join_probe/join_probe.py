@@ -5,8 +5,9 @@ names in ``src/repro/extras/join_probe/join_probe.py``: the lower bound of
 each probe key in the sorted build keys (one thread per probe row, the
 search ``csrc/hash_join.cu`` also runs, from ``csrc/probe.cuh``), then
 each row's ``dup_cap`` window of ``(hit, idx)`` on key equality alone
-(one thread per output element). Exact key verification is the caller's,
-as in the JAX package.
+(the outputs walked as one flat range in 16-byte stores, the walk of
+``csrc/probe.cuh`` that ``hash_join_probe`` runs too). Exact key
+verification is the caller's, as in the JAX package.
 
 Keys are uint32 held as int32 bit patterns. A CPU tensor goes to the plain
 version (`repro_torch.extras.join_probe.ref`); a CUDA tensor launches the

@@ -6,8 +6,10 @@ tensor launches the kernel or raises.
 
   * `bitset_lookup` replaces ``bitset_lookup`` of
     ``src/repro/kernels/bitset/bitset.py`` — one thread per id;
-  * `bitset_pack` replaces ``bitset_pack`` of the same file — one warp per
-    word, a ballot of its 32 lanes;
+  * `bitset_pack` replaces ``bitset_pack`` of the same file — one thread
+    per word, two 16-byte loads of its 32 flags, one 4-byte store; its C
+    entry point takes the number of flags, so `pack_flags` (what
+    `mask_to_host` calls) packs a ragged mask without a padded copy;
   * `bitset_build` replaces the TPU backend's XLA scatter + ``bitset_pack``
     pair — Hopper has ``atomicOr``, so one thread per id ORs its bit into
     words the same call zeroed; given a round's ``(n, width)`` columns it
@@ -34,7 +36,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 LOOKUP = CudaKernel("bitset", "bitset_lookup", [_P, _I, _P, _L, _P])
 BUILD = CudaKernel("bitset", "bitset_build", [_P, _P, _L, _I, _P, _L])
-PACK = CudaKernel("bitset", "bitset_pack", [_P, _L, _P])
+PACK = CudaKernel("bitset", "bitset_pack", [_P, _L, _P])  # mask, its flag count, words
 UNPACK = CudaKernel("bitset", "bitset_unpack", [_P, _L, _P])
 FILTER = CudaKernel("bitset", "candidate_filter", [_P, _I, _P, _P, _P, _L, _I, _P])
 
@@ -77,12 +79,26 @@ def bitset_pack(mask: torch.Tensor) -> torch.Tensor:
     if on_cpu(mask):
         return ref.pack_reference(mask)
     check(mask, "mask", torch.bool, 1)
-    n_w = ref.n_words(mask.shape[0])
-    if n_w * ref.WORD_BITS != mask.shape[0]:
+    if mask.shape[0] % ref.WORD_BITS:
         raise ValueError(f"mask length {mask.shape[0]} is not a whole number of words")
-    words = torch.empty(n_w, dtype=torch.int32, device=mask.device)
-    if n_w:
-        PACK(mask.data_ptr(), n_w, words.data_ptr())
+    return _pack(mask)
+
+
+def pack_flags(mask: torch.Tensor) -> torch.Tensor:
+    """``(n,)`` bool of any length → ``(ceil(n/32),)`` int32 words, the
+    bits past ``n`` zero: `bitset_pack` without its whole-word rule, for
+    `mask_to_host`."""
+    if on_cpu(mask):
+        return ref.pack_padded_reference(mask)
+    check(mask, "mask", torch.bool, 1)
+    return _pack(mask)
+
+
+def _pack(mask: torch.Tensor) -> torch.Tensor:
+    n = mask.shape[0]
+    words = torch.empty(ref.n_words(n), dtype=torch.int32, device=mask.device)
+    if n:
+        PACK(mask.data_ptr(), n, words.data_ptr())
     return words
 
 
@@ -127,11 +143,6 @@ def candidate_filter(
 
 def mask_to_host(pack, mask: torch.Tensor):
     """A device bool mask as a host numpy bool array, moved as packed words
-    (32 times fewer bytes cross to the host). ``pack`` is the backend's
-    `bitset_pack` op."""
-    n = mask.shape[0]
-    pad = ref.padded_bits(n) - n
-    if pad:
-        mask = torch.cat([mask, mask.new_zeros(pad)])
-    words = pack(mask).cpu().numpy()
-    return ref.unpack_bitset(words, n)
+    (32 times fewer bytes cross to the host). ``pack`` packs a mask of any
+    length: `pack_flags`, or its plain version ``ref.pack_padded_reference``."""
+    return ref.unpack_bitset(pack(mask).cpu().numpy(), mask.shape[0])

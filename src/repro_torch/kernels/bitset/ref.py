@@ -66,6 +66,13 @@ def pack_reference(mask: torch.Tensor) -> torch.Tensor:
     return as_int32_words(lanes.sum(dim=1))
 
 
+def pack_padded_reference(mask: torch.Tensor) -> torch.Tensor:
+    """(n,) bool of any length → (ceil(n/32),) int32 words; the flags past
+    ``n`` read as zero (the mask zero-padded to whole words)."""
+    pad = padded_bits(mask.shape[0]) - mask.shape[0]
+    return pack_reference(torch.cat([mask, mask.new_zeros(pad)]) if pad else mask)
+
+
 def padded_bits(n: int) -> int:
     """The bit count of the smallest whole-word bitset holding ``n`` bits."""
     return n_words(n) * WORD_BITS

@@ -80,6 +80,32 @@ def test_bitset_pack(dev, n_words_):
     same("bitset_pack", (on(dev, rng.random(32 * n_words_) < 0.4),))
 
 
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 4097, 786_427])
+def test_bitset_pack_ragged_through_mask_to_host(dev, n):
+    """The kernel's ragged tail, reached through ``mask_to_host``: one
+    launch, the host bools equal to the mask, the words bit-exact against
+    the plain version of the zero-padded mask."""
+    from repro_torch.kernels.bitset import bitset, ref
+
+    mask = on(dev, np.random.default_rng(n).random(n) < 0.4)
+    before = cuda.launch_counts()["bitset_pack"]
+    host = get_kernels("cuda").mask_to_host(mask)
+    assert cuda.launch_counts()["bitset_pack"] == before + 1
+    np.testing.assert_array_equal(host, mask.cpu().numpy())
+    assert torch.equal(bitset.pack_flags(mask), ref.pack_padded_reference(mask))
+
+
+@pytest.mark.parametrize("off", [1, 3, 4, 8])
+def test_bitset_pack_unaligned_start(dev, off):
+    """A mask whose data start off 16-byte alignment (a slice): whole words
+    through the op, a ragged length through ``mask_to_host``."""
+    base = on(dev, np.random.default_rng(off).random(4096 + 64) < 0.4)
+    assert base[off:].data_ptr() % 16 != 0
+    same("bitset_pack", (base[off:off + 4096],))
+    np.testing.assert_array_equal(get_kernels("cuda").mask_to_host(base[off:off + 1001]),
+                                  base[off:off + 1001].cpu().numpy())
+
+
 def straddle(lab, rok, indptr, r, C, label):
     """Make row ``r``'s survivors for ``label`` straddle the first tile
     boundary inside it at ranks C-1 | C: no survivor before the C edges
@@ -146,6 +172,9 @@ def probe_inputs(dev, cap_a, cap_b, nk, seed):
     (4096, 1000, 5, 5, "shared"),       # exactly at the budget
     (4097, 1000, 5, 5, "global"),       # one row above it
     (8192, 777, 1, 1, "shared"), (20_000, 3001, 1, 100, "global"), (5, 300, 3, 100, "shared"),
+    # the store pieces probe_window shares (csrc/probe.cuh), on both routes
+    (8192, 16_387, 1, 17, "shared"), (20_000, 16_387, 1, 67, "global"),
+    (4096, 1, 5, 15, "shared"), (1 << 15, 1, 1, 15, "global"),
 ])
 def test_hash_join_probe(dev, cap_a, cap_b, nk, dup, route):
     from repro_torch.kernels.hash_join import hash_join
@@ -290,8 +319,13 @@ def test_segment_mp(dev, E, d, n, hub):
     assert not got[untouched].any()
 
 
+# dup_cap 1, 15, 17 and 67 (not multiples of 16) and capB 1 and 16k + 3:
+# probe_window walks its flat output with a scalar tail only at its end
 @pytest.mark.parametrize("cap_a,cap_b,dup", [(8, 7, 6), (3, 4, 5), (8192, 262_144, 64),
-                                             (1 << 16, 1000, 3), (100, 999, 100)])
+                                             (1 << 16, 1000, 3), (100, 999, 100),
+                                             (8192, 16_387, 1), (8192, 16_387, 15),
+                                             (8192, 1003, 17), (8192, 16_387, 67),
+                                             (8192, 1, 17), (300, 1, 1)])
 def test_join_probe(dev, cap_a, cap_b, dup):
     from repro_torch.extras.join_probe import ops, ref
 
@@ -299,7 +333,8 @@ def test_join_probe(dev, cap_a, cap_b, dup):
     ka = np.sort(rng.integers(0, 2**32, cap_a, dtype=np.uint64) % (cap_a // 2 + 1) * 977
                  + 2**31).astype(np.uint32)
     ka[-1] = 0xFFFFFFFF
-    kb = np.concatenate([ka[rng.integers(0, cap_a, cap_b - 2)], [0, 0xFFFFFFFF]]).astype(np.uint32)
+    kb = np.concatenate([ka[rng.integers(0, cap_a, max(cap_b - 2, 0))],
+                         np.array([0, 0xFFFFFFFF])[-cap_b:]]).astype(np.uint32)
     a, b = on(dev, ka), on(dev, kb)
     c0 = cuda.launch_counts()
     lo = ops.lower_bound(a, b)

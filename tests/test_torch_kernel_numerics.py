@@ -28,10 +28,17 @@ exactly once.
 And the plan of ``csrc/hash_join.cu``: the build side staged into shared
 memory where it fits the budget (each array at an offset congruent to its
 address mod 16), persistent blocks looping over tiles of probe rows, each
-thread's walk over a tile's slots in 16-slot ``hit`` and 4-slot ``idx``
-vectors with a fast path for a vector inside one row and the build side,
-the scalar tail of the last tile. Held bit for bit to ``probe_reference``
-and the JAX package's ``"jnp"`` probe, with every slot written exactly once.
+tile's slots written by ``csrc/probe.cuh``'s ``store_window`` (each
+thread's walk in 16-slot ``hit`` and 4-slot ``idx`` vectors with a fast
+path for a vector inside one row and the build side, the scalar tail of
+the last tile). Held bit for bit to ``probe_reference`` and the JAX
+package's ``"jnp"`` probe, with every slot written exactly once. The same
+``store_window`` over ``csrc/join_probe.cu``'s whole ``probe_window``
+output, held to both packages' ``window_reference``; and
+``csrc/bitset.cu``'s ``bitset_pack``, a word a thread (SIMD byte compares,
+one multiply a lane, the ragged tail and unaligned masks byte by byte),
+held to ``pack_reference`` of the zero-padded mask and the JAX package's
+``pack_bitset``.
 
 Inputs come from numpy seeds; the emulations live here, not in the port.
 """
@@ -337,10 +344,10 @@ def lower_bound_steps(ka, keys, cap_a):
 def hash_join_plan_mirror(ka, a_keys, a_valid, kb, b_keys, b_valid, *, dup_cap, rows, blocks,
                           addrs=(0, 4, 1)):
     """``csrc/hash_join.cu`` in numpy: the route, the persistent blocks'
-    tiles of ``rows`` probe rows, each thread's walks over the tile's slots
-    (a step: 16 ``hit`` slots and four 4-slot ``idx`` pieces, the fast path
-    where a piece lies in one row and inside the build side), the scalar
-    tails. Returns ``(hit, idx, hit_writes, idx_writes, route)``."""
+    tiles of ``rows`` probe rows (``rows`` threads a block), each tile's
+    slots written by `store_window_mirror` with ``Verified``'s test (probe
+    row valid, build row valid, key columns equal). Returns ``(hit, idx,
+    hit_writes, idx_writes, route)``."""
     cap_a, nk = a_keys.shape
     cap_b, dup = kb.shape[0], dup_cap
     route = "shared" if cap_a * (5 + 4 * nk) <= STAGE_BUDGET else "global"
@@ -350,91 +357,113 @@ def hash_join_plan_mirror(ka, a_keys, a_valid, kb, b_keys, b_valid, *, dup_cap, 
     idx = np.zeros(cap_b * dup, np.int64)
     hit_w = np.zeros(cap_b * dup, np.int64)
     idx_w = np.zeros(cap_b * dup, np.int64)
-
-    def verified(pc, j):
-        return bool(a_valid[pc]) and bool((a_keys[pc] == b_keys[j]).all())
-
-    def slot_hit(pos, key, bv, j):
-        return bool(bv) and pos < cap_a and ka[pos] == key and verified(pos, j)
-
     n_tiles = -(-cap_b // rows)
     for block in range(min(blocks, n_tiles)):
         for tile in range(block, n_tiles, blocks):
             j0 = tile * rows
             n_rows = min(rows, cap_b - j0)
             s_lo = lower_bound_steps(ka, kb[j0:j0 + n_rows], cap_a)
-            s_key, s_bv = kb[j0:j0 + n_rows], b_valid[j0:j0 + n_rows]
-            n_slots, base = n_rows * dup, j0 * dup
+            base, n_slots = j0 * dup, n_rows * dup
             assert base % 16 == 0  # both outputs' vectors start 16-byte aligned
-            n16, n4 = n_slots // 16, n_slots // 4
-
-            def walk(first, stride):  # Walk: one division, then constant steps
-                return [*divmod(first, dup), *divmod(stride, dup)]
-
-            def step(wk):
-                wk[0], wk[1] = wk[0] + wk[2], wk[1] + wk[3]
-                if wk[1] >= dup:
-                    wk[0], wk[1] = wk[0] + 1, wk[1] - dup
-
-            def hit_vector(r, w):
-                lo = int(s_lo[r])
-                if w + 16 <= dup and lo + w + 16 <= cap_a:  # one row, in range
-                    eq = (ka[lo + w:lo + w + 16] == s_key[r]) & bool(s_bv[r])
-                    return [bool(e) and verified(lo + w + i, j0 + r) for i, e in enumerate(eq)]
-                m = []
-                for i in range(16):
-                    m.append(slot_hit(int(s_lo[r]) + w, s_key[r], s_bv[r], j0 + r))
-                    w += 1
-                    if w == dup and i < 15:
-                        r, w = r + 1, 0
-                return m
-
-            def idx_vector(r, w):
-                lo = int(s_lo[r])
-                if w + 4 <= dup and lo + w + 4 <= cap_a:
-                    return [lo + w + i for i in range(4)]
-                out = []
-                for i in range(4):
-                    out.append(min(int(s_lo[r]) + w, cap_a - 1))
-                    w += 1
-                    if w == dup and i < 3:
-                        r, w = r + 1, 0
-                return out
-
-            for tid in range(rows):  # one step: 16 hit slots and four 4-slot idx pieces
-                a, b = walk(16 * tid, 16 * rows), walk(4 * tid, 4 * rows)
-                v = q = tid
-                while q < n4:
-                    if v < n16:
-                        assert a[:2] == list(divmod(16 * v, dup))
-                        sl = slice(base + 16 * v, base + 16 * v + 16)
-                        hit[sl] = hit_vector(*a[:2])
-                        hit_w[sl] += 1
-                    for _ in range(4):
-                        if q < n4:
-                            assert b[:2] == list(divmod(4 * q, dup))
-                            sl = slice(base + 4 * q, base + 4 * q + 4)
-                            idx[sl] = idx_vector(*b[:2])
-                            idx_w[sl] += 1
-                        q += rows
-                        step(b)
-                    v += rows
-                    step(a)
-            for width in (16, 4):  # the scalar tails: only the last tile's
-                tail = range(width * (n_slots // width), n_slots)
-                assert not len(tail) or tile == n_tiles - 1
-                for lt in tail:
-                    r, w = divmod(lt, dup)
-                    pos = int(s_lo[r]) + w
-                    if width == 16:
-                        hit[base + lt] = slot_hit(pos, s_key[r], s_bv[r], j0 + r)
-                        hit_w[base + lt] += 1
-                    else:
-                        idx[base + lt] = min(pos, cap_a - 1)
-                        idx_w[base + lt] += 1
+            assert tile == n_tiles - 1 or n_slots % 16 == 0  # only the last tile has tails
+            # the tile's store_window, Verified as its test
+            out = store_window_mirror(
+                ka, kb[j0:j0 + n_rows], s_lo, dup=dup, nt=rows,
+                row_ok=lambda r: b_valid[j0 + r].astype(bool),
+                slot_ok=lambda r, pc: a_valid[pc].astype(bool) & (a_keys[pc] == b_keys[j0 + r]).all(-1))
+            for full, part in zip((hit, idx, hit_w, idx_w), out):
+                full[base:base + n_slots] = part.ravel()
     shape = (cap_b, dup)
     return (hit.reshape(shape).astype(bool), idx.reshape(shape).astype(np.int32),
             hit_w.reshape(shape), idx_w.reshape(shape), route)
+
+
+def store_window_mirror(ka, key, lo, *, dup, nt, row_ok=None, slot_ok=None):
+    """``csrc/probe.cuh``'s ``store_window`` in numpy: the windows of
+    ``len(lo)`` rows (row ``r``: build positions ``lo[r] + w``, probe key
+    ``key[r]``) as one flat range of ``rows · dup`` slots, walked by ``nt``
+    threads. A step gives each thread one 16-slot ``hit`` piece and four
+    4-slot ``idx`` pieces, its (row, slot) advanced by ``Walk``'s constant
+    step (held to the division here), the piece's slots stepping across
+    rows as ``hit_vector`` and ``idx_vector`` step, a fast path for a piece
+    in one row and the build side; then the scalar tails at the end of the
+    range. ``row_ok(r)`` and ``slot_ok(r, pc)`` are the kernel's test beyond
+    key equality (none: ``KeyOnly``). Returns ``(hit, idx, hit_writes,
+    idx_writes)``, all ``(rows, dup)``."""
+    cap_a, cap_b = ka.shape[0], key.shape[0]
+    n = cap_b * dup
+    row_ok = row_ok or (lambda r: np.ones(r.shape, bool))
+    slot_ok = slot_ok or (lambda r, pc: np.ones(r.shape, bool))
+    n16, n4 = n // 16, n // 4
+    hit, idx = np.zeros(n, np.uint8), np.zeros(n, np.int64)
+    hit_w, idx_w = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    lo = lo.astype(np.int64)
+
+    def walk(first, stride):  # one division, then constant steps
+        return [first // dup, first % dup, stride // dup, stride % dup]
+
+    def step(wk):
+        wk[0], wk[1] = wk[0] + wk[2], wk[1] + wk[3]
+        wrap = wk[1] >= dup
+        wk[0], wk[1] = wk[0] + wrap, np.where(wrap, wk[1] - dup, wk[1])
+
+    def piece(r, w, width):  # (k, width) rows and slots of k pieces
+        rs, ws = [r], [w]
+        for _ in range(width - 1):
+            w = w + 1
+            wrap = w == dup
+            r, w = r + wrap, np.where(wrap, 0, w)
+            rs.append(r)
+            ws.append(w)
+        return np.stack(rs, 1), np.stack(ws, 1)
+
+    def slot_hit(r, w):
+        p = lo[r] + w
+        pc = np.clip(p, 0, cap_a - 1)
+        return (p < cap_a) & row_ok(r) & (ka[pc] == key[r]) & slot_ok(r, pc)
+
+    def slot_idx(r, w):
+        return np.clip(lo[r] + w, 0, cap_a - 1)
+
+    def vectors(wk, first, width, fn):
+        r, w = wk[0], wk[1]
+        assert (r * dup + w == first).all()  # the walk is the division's
+        rs, ws = piece(r, w, width)
+        pos = lo[r] + w
+        fast = (w + width <= dup) & (pos >= 0) & (pos + width <= cap_a)
+        out = fn(rs, ws)
+        if fn is slot_hit:  # the fast path: the piece's keys against the row's at once,
+            pc = np.clip(pos[:, None] + np.arange(width), 0, cap_a - 1)  # then the test
+            run = row_ok(r)[:, None] & (ka[pc] == key[r][:, None]) & slot_ok(rs, pc)
+            out = np.where(fast[:, None], run, out)
+        else:
+            out = np.where(fast[:, None], pos[:, None] + np.arange(width), out)
+        return (first[:, None] + np.arange(width)).ravel(), out.ravel()
+
+    t = np.arange(nt)
+    a, b = walk(16 * t, 16 * nt), walk(4 * t, 4 * nt)
+    u, q = t.copy(), t.copy()
+    while (q < n4).any():
+        act = u < n16
+        sl, vals = vectors([a[0][act], a[1][act]], 16 * u[act], 16, slot_hit)
+        hit[sl] = vals
+        np.add.at(hit_w, sl, 1)
+        for _ in range(4):
+            act = q < n4
+            sl, vals = vectors([b[0][act], b[1][act]], 4 * q[act], 4, slot_idx)
+            idx[sl] = vals
+            np.add.at(idx_w, sl, 1)
+            q += nt
+            step(b)
+        u += nt
+        step(a)
+    for start, out, writes, fn in ((16 * n16, hit, hit_w, slot_hit), (4 * n4, idx, idx_w, slot_idx)):
+        tail = np.arange(start, n)  # < 16 (hit) or < 4 (idx) slots, a division each
+        out[tail] = fn(tail // dup, tail % dup)
+        writes[tail] += 1
+    shape = (cap_b, dup)
+    return (hit.reshape(shape).astype(bool), idx.reshape(shape).astype(np.int32),
+            hit_w.reshape(shape), idx_w.reshape(shape))
 
 
 def probe_case(seed, cap_a, cap_b, nk, *, distinct=None, high=False):
@@ -496,3 +525,99 @@ def test_hash_join_probe_tile_plan(case):
     np.testing.assert_array_equal(idx, np.asarray(ji))
     if case == "pow2-full-run":
         assert hit[0].all() and idx[0, 0] == 1  # the run of six fills the window
+
+
+# ----------------------------------------------------- probe_window's walk
+WINDOW_THREADS = int(re.search(r"constexpr int kThreads = (\d+);",
+                               (CSRC / "join_probe.cu").read_text())[1])
+
+
+def window_walk_mirror(ka, kb, lo, *, dup, blocks):
+    """``csrc/join_probe.cu``'s ``probe_window`` in numpy: probe.cuh's
+    ``store_window`` over the whole flat output of ``capB · dup`` slots by
+    ``blocks · kThreads`` threads, on key equality alone (``KeyOnly``)."""
+    return store_window_mirror(ka, kb, lo, dup=dup, nt=blocks * WINDOW_THREADS)
+
+
+def window_case(seed, cap_a, cap_b):
+    """A sorted build side with duplicate runs, probe keys half from it, and
+    their unsigned lower bounds."""
+    rng = np.random.default_rng(seed)
+    ka = (np.sort(rng.integers(0, cap_a // 3 + 1, cap_a)) * 977).astype(np.uint32)
+    ka[-1] = 0xFFFFFFFF
+    kb = np.where(rng.random(cap_b) < 0.5, ka[rng.integers(0, cap_a, cap_b)],
+                  rng.integers(0, 2**32, cap_b, dtype=np.uint64).astype(np.uint32))
+    return ka, kb, np.searchsorted(ka, kb, side="left").astype(np.int32)
+
+
+@pytest.mark.parametrize("dup", [1, 5, 16, 17, 64, 67])
+def test_probe_window_flat_walk(dup):
+    """Every slot of ``hit`` and ``idx`` written exactly once, whatever the
+    grid, for a ragged ``capB``; bit for bit the port's and the JAX
+    package's ``window_reference``. A ``lo`` outside ``[0, capA]`` still
+    gives an ``idx`` inside the build side."""
+    jax = pytest.importorskip("jax")
+    from repro.extras.join_probe import ref as jax_ref
+    from repro_torch.extras.join_probe import ref as port_ref
+
+    ka, kb, lo = window_case(dup, 300, 333)
+    tk = [torch.from_numpy(x.view(np.int32)) for x in (ka, kb)]
+    want_hit, want_idx = port_ref.window_reference(*tk, torch.from_numpy(lo), dup_cap=dup)
+    # one jitted call compiles faster than the eager op-by-op dispatch
+    jax_hit, jax_idx = jax.jit(lambda *a: jax_ref.window_reference(*a, dup_cap=dup))(ka, kb, lo)
+    for blocks in (1, 2, -(-333 * dup // (16 * WINDOW_THREADS))):
+        hit, idx, hit_w, idx_w = window_walk_mirror(ka, kb, lo, dup=dup, blocks=blocks)
+        assert (hit_w == 1).all() and (idx_w == 1).all(), "a slot written other than exactly once"
+        np.testing.assert_array_equal(hit, want_hit.numpy())
+        np.testing.assert_array_equal(idx, want_idx.numpy())
+        np.testing.assert_array_equal(hit, np.asarray(jax_hit))
+        np.testing.assert_array_equal(idx, np.asarray(jax_idx))
+    wild = lo + np.random.default_rng(dup).integers(-400, 400, lo.shape).astype(np.int32)
+    hit, idx, _, _ = window_walk_mirror(ka, kb, wild, dup=dup, blocks=1)
+    assert ((idx >= 0) & (idx < ka.shape[0])).all()
+    assert (ka[idx[hit]] == np.broadcast_to(kb[:, None], hit.shape)[hit]).all()
+
+
+# ------------------------------------------------------------- bitset_pack
+PACK_SRC = (CSRC / "bitset.cu").read_text()
+LANE_ONES = int(re.search(r"kLaneOnes = (0x[0-9A-Fa-f]+)u;", PACK_SRC)[1], 16)
+GATHER = int(re.search(r"kGather = (0x[0-9A-Fa-f]+)u;", PACK_SRC)[1], 16)
+
+
+def pack_mirror(flags, addr):
+    """``csrc/bitset.cu``'s ``pack_kernel`` in numpy: a word a thread over
+    ``n`` flag bytes at a device address ``addr`` mod 16. A whole word of an
+    aligned mask: two 16-byte loads, each 4-byte lane to 4 bits by a byte
+    compare with zero, ``& kLaneOnes``, ``* kGather`` (mod 2**32) and a shift
+    by 24. The last word, and every word of an unaligned mask: one byte at a
+    time, the flags past ``n`` zero."""
+    n = flags.shape[0]
+    n_words = -(-n // 32)
+    whole = n // 32 if addr % 16 == 0 else 0
+    words = np.zeros(n_words, np.uint32)
+    lanes = flags[:32 * whole].reshape(whole, 8, 4)
+    ne = np.where(lanes != 0, np.uint8(0xFF), np.uint8(0)).view("<u4")[..., 0]  # __vcmpne4
+    nib = ((ne & np.uint32(LANE_ONES)).astype(np.uint64) * GATHER % 2**32) >> 24
+    assert (nib < 16).all()  # no carry reaches bit 28
+    words[:whole] = (nib << (4 * np.arange(8, dtype=np.uint64))).sum(1)
+    rest = np.zeros((n_words - whole) * 32, np.uint64)
+    rest[:n - 32 * whole] = flags[32 * whole:] != 0
+    words[whole:] = (rest.reshape(-1, 32) << np.arange(32, dtype=np.uint64)).sum(1)
+    return words
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 4097, 786_427])
+def test_bitset_pack_word_a_thread(n):
+    """Flag bytes of any value (a byte counts where it is nonzero), any
+    length (the zero tail in the last word), aligned or not: bit for bit
+    `pack_reference` of the zero-padded mask and the JAX package's
+    ``pack_bitset``."""
+    from repro.kernels.bitset import ref as jax_ref
+    from repro_torch.kernels.bitset import ref as port_ref
+
+    rng = np.random.default_rng(n)
+    flags = np.where(rng.random(n) < 0.4, rng.integers(1, 256, n), 0).astype(np.uint8)
+    want = port_ref.pack_padded_reference(torch.from_numpy(flags != 0)).numpy().view(np.uint32)
+    np.testing.assert_array_equal(want, jax_ref.pack_bitset(flags != 0))
+    for addr in (0, 1, 4, 8):
+        np.testing.assert_array_equal(pack_mirror(flags, addr), want)
