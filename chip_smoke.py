@@ -262,10 +262,11 @@ def host_us(fn, n: int = 2000) -> float:
 
 def eager_times(fn) -> str:
     """Where a call's CUDA-event time goes: the host µs a call (`host_us`),
-    the ms a call of 100 calls between two events (launches queue ahead of
-    the card, so this is the device's time in eager mode), and the median
-    ms of 10 single calls each timed behind ~0.2 ms of queued work (the
-    start event then waits on the card, not on the host path)."""
+    the ms a call of 100 calls between two events (the larger of the
+    device's time a call in eager mode and the host's launch interval),
+    and the median ms of 10 single calls each timed behind ~0.2 ms of
+    queued work (the start event then waits on the card, not on the host
+    path)."""
     spin = torch.empty(1 << 26, device="cuda")
     one = []
     for _ in range(10):
