@@ -31,8 +31,10 @@ result lines are printed only when every phase passed):
      ``stwig_expand`` and ``bitset_build`` call with its output for phase 6;
   5. kernels — each matcher kernel against its plain version on the card,
      on those main-path inputs and on small adversarial cases, bit for bit
-     (tolerance 0: all outputs are integers or flags); ``stwig_expand``'s
-     include a 60,000-edge row over ~30 tiles, 10,000 empty rows, k = 16
+     (tolerance 0: all outputs are integers or flags); ``bitset_lookup``'s
+     include ragged lengths (15, 16, 17, 1,000,008), starts 1-15 ids past a
+     16-byte boundary and ids -1, 32·W, 2^31 - 1 on the kernel's group
+     boundaries; ``stwig_expand``'s include a 60,000-edge row over ~30 tiles, 10,000 empty rows, k = 16
      with C = 1 and survivors straddling a tile boundary, ``bitset_build``'s
      a round's 7 columns with negative ids, ``hash_join_probe``'s both of
      its routes (a build side above its 102,400-byte shared-memory budget,
@@ -45,12 +47,15 @@ result lines are printed only when every phase passed):
      lengths and on masks that start off 16-byte alignment (the op, whole
      words, too; and the op must refuse a ragged mask); the line lists the
      main path's masks, and ``mask_to_host``'s host path is timed step by
-     step (``perf_counter_ns``, as ``[probe]`` times the lower bound's).
+     step (``perf_counter_ns``, as ``[probe]`` times the lower bound's),
+     its byte-wise host unpack beside the 32-lane one it replaced.
      Kernel and plain times are CUDA-event medians of 10 runs after a
      warm-up; the device time of ``hash_join_probe`` and of the bitset
      kernels (``bitset_unpack``'s in phase 6) also from a CUDA graph of
      20 calls, with the eager call's parts beside it (`eager_times`: host
-     µs, 100 calls back to back, a call behind queued work).
+     µs, 100 calls back to back, a call behind queued work);
+     ``bitset_lookup``'s beside one PyTorch kernel moving about its bound's
+     bytes on the same tensors (``ids.ne(0)``, `same_bytes`).
      ``stwig_expand``'s bound
      counts the bytes it must read when it reads lazily (as
      ``candidate_filter``'s does), the all-inputs figure printed beside it,
@@ -61,9 +66,15 @@ result lines are printed only when every phase passed):
      the counts zeroed before and read after (each > 0): bit-exact against
      the plain versions, ``unpack(build(ids))`` equal to the built ids' bits,
      and the filter's per-root sums equal to ``stwig_expand``'s exact counts.
+     Then, uncounted, the filter on ragged lengths, ``root_ok`` all false,
+     all true and on ~1 edge in 418 in runs by source, each edge array
+     (then all three) starting 1-15 elements past a 16-byte boundary, ids
+     out of range on group boundaries: bit-exact too.
      The filter's kernel row is timed on those edges made dense (every edge
      ``root_ok`` with the child's label, random binding words), where its
      whole byte bound is needed; its sparse main-path input is timed too;
+     each input also by a CUDA graph of 20 calls, with `eager_times`, the
+     sparse one beside ``root_ok.clone()`` (`same_bytes`);
   7. a 2,000-node graph gives the same rows on the CPU and on the card;
   8. recsys — xDeepFM at its published widths (39 fields, 1,000,000 rows a
      field, embed 10, CIN 200-200-200, MLP 400-400, bag 4; random weights
@@ -287,6 +298,15 @@ def eager_times(fn) -> str:
     return (f"host {host_us(fn):.3f} µs a call; 100 calls back to back "
             f"{a.elapsed_time(b) / 100:.4f} ms a call; a call behind queued work "
             f"{statistics.median(one):.4f} ms")
+
+
+def same_bytes(fn, what: str) -> str:
+    """A yardstick for a kernel's device time: one PyTorch elementwise
+    kernel that moves about the bytes of the kernel's bound (its streamed
+    inputs and its output) on the same tensors, in the same cache state, by
+    a CUDA graph of 20 calls (`graph_ms`)."""
+    return (f"{what}, one PyTorch kernel moving about the bound's bytes: "
+            f"{graph_ms(fn):.4f} ms by graph")
 
 
 def device_profile(fn, reps: int = 3):
@@ -521,8 +541,17 @@ def adversarial_cases(dev):
     ka = np.array([0, 5, 5, 5, 5, 5, 5, 9], np.uint32)
     big = np.sort(rng.integers(0, 2**32, 64, dtype=np.uint64)).astype(np.uint32)
     big[-3:] = 0xFFFFFFFF
+    # sixteen ids a thread: ragged lengths (1,000,008 ends 8 past a group, as
+    # the main path's edge count does), starts 1-15 ids past a 16-byte
+    # boundary, ids out of range on group boundaries
+    tw = t(words)
+    lookups = [("bitset_lookup", (tw, t(group_ids(rng, n, W))), {})
+               for n in (15, 16, 17, 1_000_008)]
+    base = t(group_ids(rng, 1100, W))
+    lookups += [("bitset_lookup", (tw, base[off:off + 1000]), {}) for off in range(1, 16)]
     return [
-        ("bitset_lookup", (t(words), t(ids.astype(np.int32))), {}),
+        ("bitset_lookup", (tw, t(ids.astype(np.int32))), {}),
+        *lookups,
         ("bitset_build", (t(bids), t(rng.random(500) < 0.7), W), {}),
         ("bitset_build", (t(bids2), t(rng2.random(500) < 0.7), W), {}),
         ("bitset_pack", (t(rng.random(4096) < 0.4),), {}),
@@ -552,6 +581,64 @@ def adversarial_cases(dev):
         join_case(t, 11, 3000, 1000, 3, 16, "shared"),   # nk 3
         join_case(t, 12, 8000, 999, 3, 5, "global"),     # nk 3
     ]
+
+
+def group_ids(rng, n: int, W: int) -> np.ndarray:
+    """``n`` int32 ids over ``W`` words, 100 past either end, with -1, 32·W
+    and 2^31 - 1 on boundaries of the kernels' groups of sixteen."""
+    ids = rng.integers(-100, 32 * W + 100, n).astype(np.int32)
+    for i, x in zip((0, 15, 16, 31, 32, 47, n - 1),
+                    (2**31 - 1, -1, 32 * W, 2**31 - 1, -1, 32 * W, 2**31 - 1)):
+        if i < n:
+            ids[i] = x
+    return ids
+
+
+def filter_checks(cuda_k, plain, dev) -> str:
+    """``candidate_filter`` off the main path's shapes, bit-exact against
+    its plain version: ragged lengths, ``root_ok`` all false, all true and
+    on ~1 edge in 418 in runs by source, each edge array in turn (then all
+    three) starting 1-15 elements past a 16-byte boundary, and ids out of
+    range on group boundaries throughout. Returns what it checked."""
+    rng = np.random.default_rng(5)
+    W = 37
+
+    def t(x):
+        x = np.asarray(x)
+        return torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x).to(dev)
+
+    def check(args, what):
+        if not torch.equal(cuda_k.candidate_filter(*args), plain.candidate_filter(*args)):
+            fail(f"candidate_filter differs from its plain version ({what})")
+
+    words = t(rng.integers(0, 2**32, W, dtype=np.uint32))
+
+    def edges(n, rok):
+        return (t(group_ids(rng, n, W)), t(rng.integers(0, 3, n).astype(np.int32)), t(rok))
+
+    lengths = (15, 16, 17, 1_000_008)
+    for n in lengths:
+        check((words, *edges(n, rng.random(n) < 0.8), 2), f"{n} edges")
+    n = 1_000_008
+    kinds = {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+             "1 in 418 by source": np.repeat(rng.random(n) < 1 / 418,
+                                             rng.integers(1, 41, n))[:n]}
+    for kind, rok in kinds.items():
+        dst, lab, rk = edges(n, rok)
+        for label in (0, 1, 2):
+            check((words, dst, lab, rk, label), f"root_ok {kind}, label {label}")
+    dst, lab, rok = edges(1100, np.ones(1100, bool))
+    lab = torch.where(lab == 0, 2, lab)
+    names = ("dst_ids", "dst_labels", "root_ok", "all three")
+    for off in range(1, 16):
+        for which, name in enumerate(names):
+            cut = [x[off:off + 1000] if which in (i, 3) else x[:1000]
+                   for i, x in enumerate((dst, lab, rok))]
+            check((words, *cut, 2), f"{name} starting {off} elements in")
+    torch.cuda.synchronize()
+    return (f"ragged lengths {list(lengths)}; root_ok {list(kinds)} on {n} edges, labels 0-2; "
+            f"{' / '.join(names)} starting 1-15 elements past a 16-byte boundary (1,000 edges); "
+            f"ids -1, 32 x W, 2^31 - 1 on group boundaries")
 
 
 def join_case(t, seed: int, cap_a: int, cap_b: int, nk: int, dup: int, route: str):
@@ -782,6 +869,13 @@ def pack_checks(cuda_k, plain, dev) -> str:
             f"1,001 through mask_to_host); the op refuses 33 flags")
 
 
+def unpack_by_lanes(words: np.ndarray, n_bits: int) -> np.ndarray:
+    """The host unpack ``mask_to_host`` ran before it read bytes: every word
+    shifted into 32 uint32 lanes. Timed beside its replacement only."""
+    lanes = (words.view(np.uint32)[:, None] >> np.arange(32, dtype=np.uint32)) & np.uint32(1)
+    return lanes.reshape(-1)[:n_bits].astype(bool)
+
+
 def mask_host_path(cuda_k, mask, dev) -> str:
     """``mask_to_host``'s host path on the main path's largest mask, step by
     step, in µs a call (`host_us`); also the whole path 5 flags short of
@@ -812,7 +906,8 @@ def mask_host_path(cuda_k, mask, dev) -> str:
         "the ctypes call with its launch": lambda: raw(mask.data_ptr(), n, words.data_ptr(),
                                                        stream()),
         ".cpu() of the words": lambda: words.cpu(),
-        "unpack_bitset on the host": lambda: ref.unpack_bitset(host_words, n),
+        "unpack_bitset on the host (byte-wise)": lambda: ref.unpack_bitset(host_words, n),
+        "the 32-lane unpack it replaced": lambda: unpack_by_lanes(host_words, n),
     }
     return ", ".join(f"{k} {host_us(f):.3f}" for k, f in steps.items())
 
@@ -862,7 +957,9 @@ def phase_kernels(recorder, launches, dev) -> list[dict]:
         if op.startswith("bitset_"):
             log(f"[kernels] {op}: device time by a CUDA graph of 20 calls "
                 f"{graph_ms(lambda: kernel(*args, **kw)):.4f} ms a call; "
-                f"{eager_times(lambda: kernel(*args, **kw))}")
+                f"{eager_times(lambda: kernel(*args, **kw))}"
+                + ("" if op != "bitset_lookup" else "; " + same_bytes(lambda: args[1].ne(0),
+                                                                      "ids.ne(0)")))
         if op == "bitset_pack":
             log(f"[kernels] bitset_pack: the main path's {len(recorder.masks)} mask_to_host "
                 f"calls took masks of (length, data_ptr mod 16) {recorder.masks}; bit-exact on "
@@ -983,22 +1080,28 @@ def phase_ops(recorder) -> list[dict]:
     dense = (words_r[0], dst, torch.full_like(lab, label), torch.ones_like(rok), label)
     if not torch.equal(cuda_k.candidate_filter(*dense), plain.candidate_filter(*dense)):
         fail("candidate_filter differs from its plain version (dense root_ok and labels)")
+    log(f"[ops] candidate_filter bit-exact on {filter_checks(cuda_k, plain, dst.device)}")
     rows = []
     words = max(bitsets, key=lambda b: b[2])[3]
+    sparse = (words_k[0], dst, lab, rok, label)
     for op, args, what in (
-        ("candidate_filter", (words_k[0], dst, lab, rok, label), "main-path input"),
+        ("candidate_filter", sparse, "main-path input"),
         ("bitset_unpack", (words,), "main-path input"),
         ("candidate_filter", dense, "dense input"),
     ):
-        ms = time_ms(lambda: getattr(cuda_k, op)(*args))
+        fn = getattr(cuda_k, op)
+        ms = time_ms(lambda: fn(*args))
         plain_ms = time_ms(lambda: getattr(plain, op)(*args))
         row = kernel_row(op, args, {}, counts[op], 0, ms, plain_ms)
         shapes = [tuple(a.shape) if isinstance(a, torch.Tensor) else a for a in args]
         log(f"[ops] {op} on {what} {shapes}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-            f"{work(op, args, {})[0] / 1e6:.1f} MB), launches {counts[op]}"
-            + ("" if op != "bitset_unpack" else f"; device time by a CUDA graph of 20 calls "
-               f"{graph_ms(lambda: cuda_k.bitset_unpack(*args)):.4f} ms a call"))
+            f"{work(op, args, {})[0] / 1e6:.1f} MB), launches {counts[op]}; device time by a "
+            f"CUDA graph of 20 calls {graph_ms(lambda: fn(*args)):.4f} ms a call"
+            + ("" if op == "bitset_unpack" else f"; {eager_times(lambda: fn(*args))}")
+            # the sparse input needs its root_ok read and its output written
+            + ("" if args is not sparse else "; " + same_bytes(lambda: rok.clone(),
+                                                              "root_ok.clone()")))
         if what != "main-path input" or op == "bitset_unpack":
             rows.append(row)
     return rows

@@ -10,8 +10,11 @@
 //   candidate_filter <- candidate_filter (_cand_filter_kernel)
 //
 // All five are bound by bytes: each does O(1) integer work per element.
-// lookup: one thread per id, a coalesced id read, one 4-byte word gather
-// (the bitset is small enough to stay in L2) and a 1-byte store.
+// lookup: sixteen ids a thread, read as four 16-byte loads (load_lanes),
+// sixteen word gathers through L1 (the bitset is small enough to stay in
+// L2, and the main path's ids are consecutive, so neighbouring ids share a
+// word), and the sixteen bools stored as one 16-byte vector: 64 bytes in
+// flight a thread where one id a thread had 4.
 // build: Hopper has a scatter-OR, so there is no bool lane array and no
 // pack pass. One call builds all `width` columns of a round's (n, width)
 // ids: cudaMemsetAsync zeroes the (width, nwords) words, then one thread per
@@ -30,13 +33,25 @@
 // stores are what count: one thread per 4 bits writes its 4 bools as one
 // 4-byte store, a warp 128 contiguous bytes; the word read is shared by 8
 // neighbouring threads and comes from L1.
-// candidate_filter: one thread per edge, coalesced reads of the three edge
-// arrays and a 1-byte store; the bitset (0.47 MB for 3.77M ids) stays in L2
-// for the gathers of the bit test (bitset.cuh, lookup's semantics).
+// candidate_filter: sixteen edges a thread, read lazily by group. Their
+// root_ok bytes come in as one 16-byte load; a group with no flag set
+// stores sixteen zero bytes and reads nothing else, so a sparse root_ok
+// (the main path's: ~1 edge in 418) costs about the two bytes an edge the
+// bound counts. A group's labels are read only for its flagged edges, and
+// its ids only for the edges whose label matched: as four 16-byte loads
+// where every edge of the group needs them, else edge by edge. The bit test
+// (bitset.cuh, lookup's semantics) gathers its word through L1 (the
+// bitset, 0.47 MB for 3.77M ids, stays in L2), and the sixteen results are
+// stored as one 16-byte vector.
+// lookup and candidate_filter take the element-by-element path for the
+// last, ragged group of a call, and for every group of a call whose arrays
+// do not all start on a 16-byte boundary (a slice): never the plain
+// version.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 #include "bitset.cuh"
@@ -44,13 +59,62 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGroup = 16;  // ids (lookup) or edges (candidate_filter) a thread
+
+// Four flags (bits 0-3) as four bool bytes, little-endian: flag 0 in the
+// lowest byte.
+__device__ __forceinline__ uint32_t nibble_bytes(uint32_t nib) {
+    return (nib & 1u) | ((nib >> 1) & 1u) << 8 | ((nib >> 2) & 1u) << 16 | (nib >> 3 & 1u) << 24;
+}
+
+// Sixteen flags (bit i: element i) as the sixteen bool bytes of one vector.
+__device__ __forceinline__ uint4 bool_vector(uint32_t bits) {
+    return make_uint4(nibble_bytes(bits), nibble_bytes(bits >> 4), nibble_bytes(bits >> 8),
+                      nibble_bytes(bits >> 12));
+}
+
+// The elements of p[0..16) whose bit is set in `lanes`, into v: as four
+// 16-byte loads where all sixteen are wanted (p then on a 16-byte
+// boundary), else one 4-byte load for each wanted element. The others are
+// left as they were. Plain loads, kept in L1: each of a warp's four vector
+// loads covers half of every 32-byte sector of the warp's 2 KB, and the
+// next one the other half. Streaming (evict-first) loads lost the lines in
+// between and fetched them twice, twice the bytes on inputs past L2.
+__device__ __forceinline__ void load_lanes(const int32_t* __restrict__ p, uint32_t lanes,
+                                           int32_t (&v)[kGroup]) {
+    if (lanes == 0xFFFFu) {
+        const int4* q = reinterpret_cast<const int4*>(p);
+#pragma unroll
+        for (int j = 0; j < kGroup / 4; ++j) {
+            const int4 a = q[j];
+            v[4 * j] = a.x;
+            v[4 * j + 1] = a.y;
+            v[4 * j + 2] = a.z;
+            v[4 * j + 3] = a.w;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i)
+            if (lanes >> i & 1u) v[i] = p[i];
+    }
+}
 
 __global__ void lookup_kernel(const uint32_t* __restrict__ words, int n_words,
-                              const int32_t* __restrict__ ids, long long n,
+                              const int32_t* __restrict__ ids, long long n, bool aligned,
                               uint8_t* __restrict__ out) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    out[i] = bit_test(words, n_words, ids[i]) ? 1 : 0;
+    const long long f = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kGroup;
+    if (f >= n) return;
+    if (aligned && f + kGroup <= n) {
+        int32_t v[kGroup];
+        load_lanes(ids + f, 0xFFFFu, v);
+        uint32_t hit = 0;
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) hit |= (uint32_t)bit_test(words, n_words, v[i]) << i;
+        *reinterpret_cast<uint4*>(out + f) = bool_vector(hit);
+    } else {
+        const int m = (int)min((long long)kGroup, n - f);
+        for (int i = 0; i < m; ++i) out[f + i] = bit_test(words, n_words, ids[f + i]) ? 1 : 0;
+    }
 }
 
 __global__ void build_kernel(const int32_t* __restrict__ ids,
@@ -98,20 +162,43 @@ __global__ void unpack_kernel(const uint32_t* __restrict__ words, long long n_qu
                               uint32_t* __restrict__ out) {
     long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // bits 4q .. 4q+3
     if (q >= n_quads) return;
-    uint32_t nib = (words[q >> 3] >> ((q & 7) * 4)) & 0xFu;
-    // bool bytes, little-endian: bit 4q in the lowest byte
-    out[q] = (nib & 1u) | ((nib >> 1) & 1u) << 8 | ((nib >> 2) & 1u) << 16 | (nib >> 3) << 24;
+    out[q] = nibble_bytes(words[q >> 3] >> ((q & 7) * 4));  // bit 4q in the lowest byte
 }
 
 __global__ void cand_filter_kernel(const uint32_t* __restrict__ words, int n_words,
                                    const int32_t* __restrict__ dst_ids,
                                    const int32_t* __restrict__ dst_labels,
                                    const uint8_t* __restrict__ root_ok, long long n,
-                                   int32_t child_label, uint8_t* __restrict__ out) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    out[i] = (root_ok[i] && dst_labels[i] == child_label &&
-              bit_test(words, n_words, dst_ids[i])) ? 1 : 0;
+                                   int32_t child_label, bool aligned,
+                                   uint8_t* __restrict__ out) {
+    const long long f = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kGroup;
+    if (f >= n) return;
+    if (aligned && f + kGroup <= n) {
+        const uint32_t ok = vector_bits(__ldcs(reinterpret_cast<const uint4*>(root_ok + f)));
+        uint32_t hit = 0;
+        if (ok) {
+            int32_t v[kGroup] = {};
+            load_lanes(dst_labels + f, ok, v);
+            uint32_t want = 0;  // root_ok and the child's label
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i)
+                want |= (uint32_t)((ok >> i & 1u) && v[i] == child_label) << i;
+            if (want) {
+                load_lanes(dst_ids + f, want, v);
+#pragma unroll
+                for (int i = 0; i < kGroup; ++i)
+                    if (want >> i & 1u) hit |= (uint32_t)bit_test(words, n_words, v[i]) << i;
+            }
+        }
+        *reinterpret_cast<uint4*>(out + f) = bool_vector(hit);
+    } else {
+        const int m = (int)min((long long)kGroup, n - f);
+        for (int i = 0; i < m; ++i) {
+            const long long e = f + i;
+            out[e] = (root_ok[e] && dst_labels[e] == child_label &&
+                      bit_test(words, n_words, dst_ids[e])) ? 1 : 0;
+        }
+    }
 }
 
 unsigned blocks_for(long long n, int threads = kThreads) {
@@ -122,12 +209,21 @@ unsigned blocks_for(long long n, int threads = kThreads) {
 // over 192 blocks, past the 132 SMs.
 constexpr int kPackThreads = 128;
 
+bool aligned16(std::initializer_list<const void*> ptrs) {
+    uintptr_t any = 0;
+    for (const void* p : ptrs) any |= (uintptr_t)p;
+    return (any & 15) == 0;
+}
+
 }  // namespace
 
+// n ids → n bools; launches nothing for n == 0.
 extern "C" int bitset_lookup(const void* words, int n_words, const void* ids,
                              long long n, void* out, void* stream) {
-    lookup_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, n_words, (const int32_t*)ids, n, (uint8_t*)out);
+    if (n == 0) return 0;
+    lookup_kernel<<<blocks_for((n + kGroup - 1) / kGroup), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, n_words, (const int32_t*)ids, n, aligned16({ids, out}),
+        (uint8_t*)out);
     return (int)cudaGetLastError();
 }
 
@@ -145,9 +241,8 @@ extern "C" int bitset_build(const void* ids, const void* valid, long long n, int
 extern "C" int bitset_pack(const void* mask, long long n, void* words, void* stream) {
     const long long n_words = (n + 31) / 32;
     if (n_words == 0) return 0;
-    const bool aligned = ((uintptr_t)mask & 15) == 0;
     pack_kernel<<<blocks_for(n_words, kPackThreads), kPackThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)mask, n, n_words, aligned, (uint32_t*)words);
+        (const uint8_t*)mask, n, n_words, aligned16({mask}), (uint32_t*)words);
     return (int)cudaGetLastError();
 }
 
@@ -158,11 +253,15 @@ extern "C" int bitset_unpack(const void* words, long long n_words, void* out, vo
     return (int)cudaGetLastError();
 }
 
+// n edges → n bools; launches nothing for n == 0.
 extern "C" int candidate_filter(const void* words, int n_words, const void* dst_ids,
                                 const void* dst_labels, const void* root_ok, long long n,
                                 int child_label, void* out, void* stream) {
-    cand_filter_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+    if (n == 0) return 0;
+    cand_filter_kernel<<<blocks_for((n + kGroup - 1) / kGroup), kThreads, 0,
+                         (cudaStream_t)stream>>>(
         (const uint32_t*)words, n_words, (const int32_t*)dst_ids, (const int32_t*)dst_labels,
-        (const uint8_t*)root_ok, n, (int32_t)child_label, (uint8_t*)out);
+        (const uint8_t*)root_ok, n, (int32_t)child_label,
+        aligned16({dst_ids, dst_labels, root_ok, out}), (uint8_t*)out);
     return (int)cudaGetLastError();
 }

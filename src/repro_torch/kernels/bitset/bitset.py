@@ -5,7 +5,8 @@ goes to the plain version in `repro_torch.kernels.bitset.ref`; a CUDA
 tensor launches the kernel or raises.
 
   * `bitset_lookup` replaces ``bitset_lookup`` of
-    ``src/repro/kernels/bitset/bitset.py`` — one thread per id;
+    ``src/repro/kernels/bitset/bitset.py`` — sixteen ids a thread, four
+    16-byte loads, sixteen word gathers through L1, one 16-byte store;
   * `bitset_pack` replaces ``bitset_pack`` of the same file — one thread
     per word, two 16-byte loads of its 32 flags, one 4-byte store; its C
     entry point takes the number of flags, so `pack_flags` (what
@@ -17,11 +18,16 @@ tensor launches the kernel or raises.
   * `bitset_unpack` replaces ``bitset_unpack`` of the same file — one
     thread per four bits, one 4-byte store of four bools;
   * `candidate_filter` replaces ``candidate_filter`` of the same file —
-    one thread per edge, the bit test of ``csrc/bitset.cuh``.
+    sixteen edges a thread, read lazily: one 16-byte load of their
+    ``root_ok`` bytes, the labels only of flagged edges, the ids only of
+    label matches, the bit test of ``csrc/bitset.cuh``, one 16-byte store.
 
 All five move a few bytes per element and compute nearly nothing, so the
-card's memory rate bounds them; the kernels read every input once,
-coalesced, and write every output once.
+card's memory rate bounds them; the kernels read every input they need
+once, coalesced, and write every output once. Any length and any start of
+the 1-D inputs is taken: the C entry points send a ragged last group, and
+arrays off 16-byte alignment (slices), down an element-by-element path in
+the kernel.
 """
 from __future__ import annotations
 

@@ -42,9 +42,12 @@ def pack_bitset(mask: np.ndarray) -> np.ndarray:
 
 
 def unpack_bitset(words: np.ndarray, n_bits: int) -> np.ndarray:
-    shifts = np.arange(WORD_BITS, dtype=np.uint32)
-    bits = (words.view(np.uint32)[:, None] >> shifts) & np.uint32(1)
-    return bits.reshape(-1)[:n_bits].astype(bool)
+    """The first ``n_bits`` bits of int32 or uint32 ``words`` as bools,
+    unpacked byte by byte: bit ``i`` is bit ``i % 8`` of the words'
+    little-endian byte ``i // 8``."""
+    data = np.ascontiguousarray(words.view(np.uint32), dtype="<u4").view(np.uint8)
+    bits = np.unpackbits(data, count=min(n_bits, data.size * 8), bitorder="little")
+    return bits.view(bool)
 
 
 def bitset_test_np(words: np.ndarray, ids: np.ndarray) -> np.ndarray:

@@ -53,13 +53,37 @@ def test_build_reports_every_source(dev):
         assert cuda.load(name) is not None
 
 
-@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+def boundary_ids(ids, W):
+    """-1, 32·W and 2^31 - 1 on group boundaries of sixteen (the last and
+    first element of a group), where they fit."""
+    for i, x in zip((0, 15, 16, 31, 32, 47, ids.shape[0] - 1),
+                    (2**31 - 1, -1, 32 * W, 2**31 - 1, -1, 32 * W, 2**31 - 1)):
+        if i < ids.shape[0]:
+            ids[i] = x
+    return ids
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 1 << 20, 1_000_008])
 def test_bitset_lookup(dev, n):
+    """Sixteen ids a thread: whole groups, a ragged tail (1,000,008 ends 8
+    past a group, as the main path's edge count does), ids out of range on
+    group boundaries."""
     rng = np.random.default_rng(n)
     W = 4096
-    ids = rng.integers(-100, W * 32 + 100, n).astype(np.int32)
-    ids[:1] = 2**31 - 1
+    ids = boundary_ids(rng.integers(-100, W * 32 + 100, n).astype(np.int32), W)
     same("bitset_lookup", (on(dev, rng.integers(0, 2**32, W, dtype=np.uint32)), on(dev, ids)))
+
+
+@pytest.mark.parametrize("off", range(1, 16))
+def test_bitset_lookup_unaligned_start(dev, off):
+    """ids that start 1-15 elements past a 16-byte boundary (a slice):
+    the element-by-element path in the kernel."""
+    rng = np.random.default_rng(off)
+    W = 64
+    base = on(dev, boundary_ids(rng.integers(-100, W * 32 + 100, 1100).astype(np.int32), W))
+    words = on(dev, rng.integers(0, 2**32, W, dtype=np.uint32))
+    for n in (15, 17, 1000):
+        same("bitset_lookup", (words, base[off:off + n]))
 
 
 @pytest.mark.parametrize("width", [0, 1, 2, 7], ids=["1-D", "w1", "w2", "w7"])
@@ -191,15 +215,59 @@ def test_bitset_unpack(dev, W):
     same("bitset_unpack", (on(dev, words),))
 
 
-@pytest.mark.parametrize("E", [1, 997, 1 << 20])
+def filter_inputs(E, root_ok="random", W=37, seed=None):
+    """numpy words, dst ids (out of range on group boundaries too), labels
+    of three values, and ``root_ok``: random (80%), all false, all true, or
+    on about one edge in 418 clustered by source (whole rows of ~1-40
+    edges, as on the main path)."""
+    rng = np.random.default_rng(E if seed is None else seed)
+    dst = boundary_ids(rng.integers(-50, W * 32 + 50, E).astype(np.int32), W)
+    if root_ok == "random":
+        rok = rng.random(E) < 0.8
+    elif root_ok == "clustered":
+        rok = np.repeat(rng.random(E) < 1 / 418, rng.integers(1, 41, E))[:E]
+        rok |= np.arange(E) == E // 2  # at least one flag
+    else:
+        rok = np.full(E, root_ok == "all")
+    return (rng.integers(0, 2**32, W, dtype=np.uint32), dst,
+            rng.integers(0, 3, E).astype(np.int32), rok)
+
+
+@pytest.mark.parametrize("E", [1, 15, 16, 17, 997, 1 << 20, 1_000_008])
 def test_candidate_filter(dev, E):
-    rng = np.random.default_rng(E)
-    W = 37
-    dst = rng.integers(-50, W * 32 + 50, E).astype(np.int32)
-    dst[:1] = 2**31 - 1
-    same("candidate_filter", (on(dev, rng.integers(0, 2**32, W, dtype=np.uint32)), on(dev, dst),
-                              on(dev, rng.integers(0, 3, E).astype(np.int32)),
-                              on(dev, rng.random(E) < 0.8), 2))
+    """Sixteen edges a thread: whole groups, a ragged tail (1,000,008 ends
+    8 past a group, as the main path's 32,492,392 edges do), ids out of
+    range on group boundaries."""
+    same("candidate_filter", tuple(on(dev, x) for x in filter_inputs(E)) + (2,))
+
+
+@pytest.mark.parametrize("root_ok", ["none", "all", "clustered"])
+@pytest.mark.parametrize("E", [17, 1_000_008])
+def test_candidate_filter_root_ok(dev, E, root_ok):
+    """``root_ok`` all false (every group skipped after its flags), all
+    true (labels and ids as 16-byte vectors), and sparse in runs by source
+    as on the main path; for each label, and with every label the child's."""
+    words, dst, lab, rok = (on(dev, x) for x in filter_inputs(E, root_ok))
+    for label in (0, 1, 2):
+        same("candidate_filter", (words, dst, lab, rok, label))
+    same("candidate_filter", (words, dst, torch.full_like(lab, 2), rok, 2))
+
+
+@pytest.mark.parametrize("off", range(1, 16))
+@pytest.mark.parametrize("which", ["dst_ids", "dst_labels", "root_ok", "all"])
+def test_candidate_filter_unaligned_start(dev, which, off):
+    """Each edge array in turn, then all three, starting 1-15 elements into
+    a 16-byte aligned buffer (a slice): the element-by-element path, except
+    where an int32 array's start lands on a boundary again (4, 8, 12)."""
+    words, dst, lab, rok = (on(dev, x) for x in filter_inputs(1100, "all", seed=off))
+    lab = torch.where(lab == 0, 2, lab)  # most edges pass root_ok and the label test
+    for n in (15, 17, 1000):
+        edges = [x[off:off + n] if which in (name, "all") else x[:n]
+                 for name, x in (("dst_ids", dst), ("dst_labels", lab), ("root_ok", rok))]
+        assert [x.data_ptr() % 16 for x in edges] == [
+            off * x.element_size() % 16 if which in (name, "all") else 0
+            for name, x in zip(("dst_ids", "dst_labels", "root_ok"), edges)]
+        same("candidate_filter", (words, *edges, 2))
 
 
 @pytest.mark.parametrize("B,H,m,d,Hp", [(3, 5, 4, 6, 7), (512, 39, 39, 10, 200),

@@ -38,7 +38,11 @@ output, held to both packages' ``window_reference``; and
 ``csrc/bitset.cu``'s ``bitset_pack``, a word a thread (SIMD byte compares,
 one multiply a lane, the ragged tail and unaligned masks byte by byte),
 held to ``pack_reference`` of the zero-padded mask and the JAX package's
-``pack_bitset``.
+``pack_bitset``. And ``bitset_lookup`` and ``candidate_filter`` of the same
+source, sixteen elements a thread (16-byte loads and stores, the filter's
+lazy reads by group, the ragged tail and unaligned arrays element by
+element), held to the port's plain versions and the JAX ``"jnp"`` ops,
+with the filter's reads checked against what its short-circuit allows.
 
 Inputs come from numpy seeds; the emulations live here, not in the port.
 """
@@ -621,3 +625,172 @@ def test_bitset_pack_word_a_thread(n):
     np.testing.assert_array_equal(want, jax_ref.pack_bitset(flags != 0))
     for addr in (0, 1, 4, 8):
         np.testing.assert_array_equal(pack_mirror(flags, addr), want)
+
+
+# ------------------------------------------- bitset_lookup, candidate_filter
+GROUP = int(re.search(r"constexpr int kGroup = (\d+);", PACK_SRC)[1])
+GROUP_LENGTHS = [1, 15, 16, 17, 1000, 1009]
+
+
+def group_bits(flags):
+    """(G, 16) bools → (G,) uint32, element i at bit i."""
+    return (flags.astype(np.uint64) << np.arange(GROUP, dtype=np.uint64)).sum(1).astype(np.uint32)
+
+
+def flag_bits(vectors):
+    """``vector_bits`` of (G, 16) bytes, one 16-byte load each: a byte
+    compare with zero and one multiply a 4-byte lane, as ``pack_mirror``."""
+    lanes = np.ascontiguousarray(vectors).view("<u4")  # (G, 4)
+    ne = np.where(vectors != 0, np.uint8(0xFF), np.uint8(0)).view("<u4")  # __vcmpne4
+    assert ne.shape == lanes.shape
+    nib = ((ne & np.uint32(LANE_ONES)).astype(np.uint64) * GATHER % 2**32) >> 24
+    return (nib << (4 * np.arange(4, dtype=np.uint64))).sum(1).astype(np.uint32)
+
+
+def bool_vector(bits):
+    """``bool_vector``: (G,) 16-bit flags → (G, 16) bool bytes, built as four
+    4-byte lanes (``nibble_bytes``), element 0 in the lowest byte."""
+    nib = bits[:, None].astype(np.uint32) >> (4 * np.arange(4, dtype=np.uint32))
+    lanes = ((nib & 1) | ((nib >> 1) & 1) << 8 | ((nib >> 2) & 1) << 16
+             | ((nib >> 3) & 1) << 24).astype("<u4")
+    return lanes.view(np.uint8).reshape(-1, GROUP)
+
+
+def bit_test(words, ids):
+    """``bit_test`` (``csrc/bitset.cuh``): the bits, and where the word was
+    read (ids inside ``[0, 32 · n_words)``)."""
+    inside = (ids >= 0) & (ids.astype(np.int64) < 32 * words.shape[0])
+    w = words.view(np.uint32)[np.where(inside, ids >> 5, 0)]
+    return inside & ((w >> (ids & 31).astype(np.uint32)) & 1).astype(bool), inside
+
+
+def lookup_mirror(words, ids, addr):
+    """``csrc/bitset.cu``'s ``lookup_kernel`` in numpy, ids at a device
+    address ``addr`` mod 16 (the output, from ``torch.empty``, aligned). A
+    whole group of an aligned call: four 16-byte loads, sixteen bit tests,
+    one ``bool_vector`` store; the ragged last group, and every group of an
+    unaligned call, element by element. Returns the output bytes and how
+    many times each was written."""
+    n = ids.shape[0]
+    full = n // GROUP if addr % 16 == 0 else 0
+    out, writes = np.zeros(n, np.uint8), np.zeros(n, np.int64)
+    v = ids[:GROUP * full].reshape(full, GROUP)
+    out[:GROUP * full] = bool_vector(group_bits(bit_test(words, v)[0])).reshape(-1)
+    writes[:GROUP * full] += 1
+    out[GROUP * full:] = bit_test(words, ids[GROUP * full:])[0]
+    writes[GROUP * full:] += 1
+    return out, writes
+
+
+def filter_mirror(words, ids, labels, rok, label, addrs):
+    """``cand_filter_kernel`` in numpy, the edge arrays ``(ids, labels,
+    root_ok)`` at device addresses ``addrs`` mod 16. A whole group of an
+    aligned call: one 16-byte load of its flags; none set → sixteen zero
+    bytes and nothing else read; else its labels through ``load_lanes`` (four
+    16-byte loads where all sixteen flags are set, else only the flagged
+    ones), its ids likewise for the label matches, the bit test of the
+    matches, one ``bool_vector`` store. The ragged last group and every group
+    of an unaligned call: element by element, short-circuit. Returns the
+    output bytes, the writes of each, and the edges whose label, id and
+    bitset word were read."""
+    n = ids.shape[0]
+    full = n // GROUP if all(a % 16 == 0 for a in addrs) else 0
+    m = GROUP * full
+    out, writes = np.zeros(n, np.uint8), np.zeros(n, np.int64)
+    read = {k: np.zeros(n, bool) for k in ("label", "id", "word")}
+    ok = flag_bits(rok[:m].reshape(full, GROUP))
+    okf = ((ok[:, None] >> np.arange(GROUP, dtype=np.uint32)) & 1).astype(bool)
+    lab_read = np.where((ok == 0xFFFF)[:, None], True, okf)  # load_lanes
+    v = np.where(lab_read, labels[:m].reshape(full, GROUP), 0)  # v = {}
+    want = okf & (v == label)
+    id_read = np.where(want.all(1)[:, None], True, want)
+    v = np.where(id_read, ids[:m].reshape(full, GROUP), v)
+    bit, inside = bit_test(words, v)
+    hit = want & bit
+    out[:m] = bool_vector(group_bits(hit)).reshape(-1)
+    writes[:m] += 1
+    read["label"][:m], read["id"][:m] = lab_read.reshape(-1), id_read.reshape(-1)
+    read["word"][:m] = (want & inside).reshape(-1)
+    r = rok[m:] != 0
+    match = r & (labels[m:] == label)
+    bit, inside = bit_test(words, ids[m:])
+    out[m:] = match & bit
+    writes[m:] += 1
+    read["label"][m:], read["id"][m:], read["word"][m:] = r, match, match & inside
+    return out, writes, read
+
+
+def group_case(n, W=37):
+    """Words, ids with -1, 32·W and 2^31 - 1 on group boundaries, labels of
+    three values and ``root_ok`` in runs of 1-40 edges (all-zero, all-set
+    and partial groups)."""
+    rng = np.random.default_rng(n)
+    words = rng.integers(0, 2**32, W, dtype=np.uint32)
+    ids = rng.integers(-50, 32 * W + 50, n).astype(np.int32)
+    for i, x in zip((15, 16, 31, 32, n - 1), (-1, 32 * W, 2**31 - 1, -1, 2**31 - 1)):
+        if 0 <= i < n:
+            ids[i] = x
+    runs = np.repeat(rng.random(n) < 0.5, rng.integers(1, 41, n))[:n]
+    rok = np.where(runs, rng.integers(1, 256, n), 0).astype(np.uint8)  # any nonzero byte
+    return words, ids, rng.integers(0, 3, n).astype(np.int32), rok
+
+
+def group_addrs(elem_sizes):
+    """Each array in turn, then all at once, 0-15 elements off alignment."""
+    k = len(elem_sizes)
+    for off in range(GROUP):
+        for which in range(k + 1):
+            yield tuple(off * s % 16 if which in (i, k) else 0 for i, s in enumerate(elem_sizes))
+
+
+@pytest.mark.parametrize("n", GROUP_LENGTHS)
+def test_bitset_lookup_sixteen_a_thread(n):
+    """Every output byte written once, at every start of ``ids``; bit for
+    bit `lookup_reference` and the JAX package's ``"jnp"`` op."""
+    jax = pytest.importorskip("jax")
+    from repro.core.backend import get_kernels
+    from repro_torch.kernels.bitset import ref as port_ref
+
+    words, ids, _, _ = group_case(n)
+    want = port_ref.lookup_reference(torch.from_numpy(words.view(np.int32)),
+                                     torch.from_numpy(ids)).numpy()
+    # one jitted call compiles faster than the eager op-by-op dispatch
+    jax_out = jax.jit(get_kernels("jnp").bitset_lookup)(words, ids)
+    np.testing.assert_array_equal(want, np.asarray(jax_out))
+    for (addr,) in group_addrs((4,)):
+        out, writes = lookup_mirror(words, ids, addr)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(out.view(bool), want)
+
+
+@pytest.mark.parametrize("n", GROUP_LENGTHS)
+def test_candidate_filter_sixteen_a_thread(n):
+    """Every output byte written once, at every start of each edge array;
+    bit for bit `candidate_filter_reference` and the JAX package's
+    ``"jnp"`` op. No edge failing ``root_ok`` reads its label, and none
+    failing ``root_ok`` or the label test reads its id or bitset word; an
+    aligned call reads nothing past the flags of an all-zero group."""
+    jax = pytest.importorskip("jax")
+    from repro.core.backend import get_kernels
+    from repro_torch.kernels.bitset import ref as port_ref
+
+    words, ids, labels, rok = group_case(n)
+    label = n // GROUP % 3  # 0 at n = 1009: the flags, not v's zeros, gate a match
+    want = port_ref.candidate_filter_reference(
+        torch.from_numpy(words.view(np.int32)), torch.from_numpy(ids),
+        torch.from_numpy(labels), torch.from_numpy(rok != 0), label).numpy()
+    jax_out = jax.jit(get_kernels("jnp").candidate_filter, static_argnums=4)(
+        words, ids, labels, rok != 0, label)
+    np.testing.assert_array_equal(want, np.asarray(jax_out))
+    passed = (rok != 0) & (labels == label)
+    for addrs in group_addrs((4, 4, 1)):
+        out, writes, read = filter_mirror(words, ids, labels, rok, label, addrs)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(out.view(bool), want)
+        assert not (read["label"] & (rok == 0)).any()
+        assert not ((read["id"] | read["word"]) & ~passed).any()
+        np.testing.assert_array_equal(read["word"] & ~bit_test(words, ids)[1], False)
+        if not any(addrs):
+            full = n // GROUP * GROUP
+            empty = np.repeat((rok[:full].reshape(-1, GROUP) == 0).all(1), GROUP)
+            assert not (read["label"][:full] & empty).any()

@@ -299,6 +299,16 @@ def test_numpy_helpers_match_reference():
         np.testing.assert_array_equal(tref.bitset_test_np(words, ids),
                                       jref.bitset_test_np(words, ids))
         assert tref.n_words(n) == jref.n_words(n)
+    # the byte-wise unpack against the JAX package's 32-lane one, on random
+    # words whose bits past n are set, as int32 and as uint32 words
+    for n in (0, 33, 786_432):
+        words = rng.integers(0, 2**32, tref.n_words(n) + 1, dtype=np.uint32)
+        want = jref.unpack_bitset(words, n)
+        assert want.shape == (n,) and (n == 0 or words[-1] != 0)
+        for w in (words, words.view(np.int32)):
+            got = tref.unpack_bitset(w, n)
+            assert got.dtype == np.bool_
+            np.testing.assert_array_equal(got, want)
 
 
 def test_mask_to_host_round_trips_any_length():
