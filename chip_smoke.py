@@ -10,7 +10,8 @@ result lines are printed only when every phase passed):
      ``sm_90a``, all sources at once; the seconds it took and each kernel's
      registers/spills as ``ptxas`` reports them (``flash_attention_tc``'s
      consumers run at the 240 registers ``setmaxnreg`` gives them, not the
-     168 ptxas prints for the kernel);
+     168 ptxas prints for the kernel; ``bitset_unpack``'s are repeated on its
+     ``[ops]`` line);
   3. main path — a US-Patents-shaped R-MAT graph (3,774,768 nodes,
      16,522,438 edges, 418 labels, seed 0) opened with
      ``GraphSession.open(g)`` on the card (CUDA kernels), eight or more
@@ -74,7 +75,8 @@ result lines are printed only when every phase passed):
      ``root_ok`` with the child's label, random binding words), where its
      whole byte bound is needed; its sparse main-path input is timed too;
      each input also by a CUDA graph of 20 calls, with `eager_times`, the
-     sparse one beside ``root_ok.clone()`` (`same_bytes`);
+     sparse one beside ``root_ok.clone()`` (`same_bytes`); ``bitset_unpack``
+     on the largest main-path bitset likewise;
   7. a 2,000-node graph gives the same rows on the CPU and on the card;
   8. recsys — xDeepFM at its published widths (39 fields, 1,000,000 rows a
      field, embed 10, CIN 200-200-200, MLP 400-400, bag 4; random weights
@@ -125,16 +127,21 @@ result lines are printed only when every phase passed):
      ``lm_batch`` tokens (seed 0; a cut of prefill_32k, 32,768 × 32, whose
      logits alone would be 537 GB), then 32 greedy ``"decode"`` steps into
      a cache of 8,224 slots grown from the prefill's. The counts are zeroed
-     before and read after each: ``flash_attention``'s tensor-core route
-     (``flash_attention_tc``) 18 per prefill and its FMA route 0, both 0 in
-     decode. Each of the prefill's 18 attentions goes through the
-     tensor-core route again and is held to ``mha_reference`` within
-     ``2e-2 ·`` each output row's max|plain|; N(0,1) inputs at gemma's heads
-     (fp32 through the FMA route within 2e-5, bf16 through the tensor-core
-     route within 2e-2 of the row's max) and at qwen2-72b's (64 on 8,
-     head_dim 128, B = 1, S = 4,096, window 1,024, softcap 30) likewise, each
-     call failing if another route moved. The fp32 model (TF32 off, 1 ×
-     2,048 tokens; 18 FMA-route launches, counted) is held layer by layer:
+     before and read after each: ``flash_attention``'s bf16 tensor-core
+     route (``flash_attention_tc``) 18 per prefill, its split-TF32 route
+     (``flash_attention_tf32``) and its FMA route 0; all three 0 in decode.
+     Each of the prefill's 18 attentions goes through the tensor-core route
+     again and is held to ``mha_reference`` within ``2e-2 ·`` each output
+     row's max|plain|; N(0,1) inputs at gemma's heads (fp32 through the
+     split-TF32 route within 2e-5, the FMA kernel on the same call likewise,
+     bf16 through the tensor-core route within 2e-2 of the row's max) and at
+     qwen2-72b's (64 on 8, head_dim 128, B = 1, S = 4,096, window 1,024,
+     softcap 30) likewise, each call failing if another route moved. The
+     FMA route's own shapes (fp32 head_dim 250, bf16 128 query heads on 1),
+     counted through ``Kernels.flash_attention`` (2 FMA launches, the
+     others 0), within the same bounds. The fp32 model (TF32 off, 1 × 2,048
+     tokens; 18 split-TF32 launches, the others 0, counted) is held layer by
+     layer:
      each layer's output and the logits within ``1e-4 ·`` each row's
      max|plain|, with that layer's attention by the kernel and by the plain
      version on one shared input.
@@ -146,10 +153,15 @@ result lines are printed only when every phase passed):
      served path's layer-0 attention (the FMA route timed on the same call
      beside it), with SDPA (``is_causal``, ``enable_gqa``) on
      pre-transposed inputs as ``library_ms`` and its bound at the bf16
-     tensor-core rate; the FMA route's row on the fp32 N(0,1) call at
-     gemma's heads, its bound at the fp32 CUDA-core rate.
+     tensor-core rate; the split-TF32 route's row on the fp32 N(0,1) call at
+     gemma's heads, its bound at the TF32 tensor-core rate (split TF32's three
+     products, Q·Kᵀ alone at the fp32 rate — that route sums the logits in
+     fp32 FMAs — and the fp32 CUDA-core bound printed beside it), and the FMA
+     route's row on that same call (its launches those of its own shapes),
+     its bound at the fp32 CUDA-core rate; both with fp32 SDPA as
+     ``library_ms``.
 
-Before the last line it prints the thirteen kernels as one JSON object, then
+Before the last line it prints the fourteen kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
 ``{"ok": true, "device": {...}}``. It imports neither ``jax`` nor the JAX
 package.
@@ -368,11 +380,30 @@ def phase_device() -> tuple[str, str]:
 
 
 # ---------------------------------------------------------------- phase 2
+BUILD_MSGS: dict[str, str] = {}  # ptxas's messages by source, from phase 2
+
+
+def ptxas_usage(source: str, kernel: str) -> str:
+    """Registers and spills ptxas reported for the first kernel of
+    ``source`` whose mangled name holds ``kernel``."""
+    found = False
+    spills = "spills not reported"
+    for line in BUILD_MSGS.get(source, "").splitlines():
+        if "Compiling entry" in line:
+            found = kernel in line
+        elif found and "spill" in line:
+            spills = line.strip()
+        elif found and "Used " in line:
+            return f"{line.split('Used ')[1].split(',')[0]}, {spills}"
+    return "registers not reported"
+
+
 def phase_build() -> None:
     from repro_torch.kernels import cuda
 
     t0 = time.perf_counter()
     msgs = cuda.build(ptxas_verbose=True)
+    BUILD_MSGS.update(msgs)
     log(f"[build] {len(msgs)} sources built in {time.perf_counter() - t0:.2f} s "
         f"into {cuda.BUILD_DIR.relative_to(ROOT)}")
     for src, text in msgs.items():
@@ -766,7 +797,7 @@ def work(op, args, kw) -> tuple[int, float]:
         ka, kb, lo = args
         dup = kw["dup_cap"]
         return nbytes(ka, kb, lo) + 5 * kb.numel() * dup, 4.0 * kb.numel() * dup
-    if op in ("flash_attention", "flash_attention_tc"):
+    if op in ("flash_attention", "flash_attention_tc", "flash_attention_tf32"):
         # Q·Kᵀ and P·V over the (query, key) pairs the causal/window mask keeps
         q, k, v = args
         B, S, Nq, H = q.shape
@@ -786,9 +817,10 @@ def attention_pairs(S: int, window: int | None) -> int:
 
 # the rate each kernel's operation bound is taken at: fp32 CUDA cores, except
 # the kernels on the tensor cores: attention's bf16 route at the bf16 rate,
-# the CIN layer (split TF32) at the TF32 rate; the fp32 bounds are printed
-# beside them
-OPS_RATE = {"flash_attention_tc": BF16_OPS_PER_S, "cin_layer": TF32_OPS_PER_S}
+# its fp32 route and the CIN layer (split TF32) at the TF32 rate; the fp32
+# bounds (and split TF32's three products) are printed beside them
+OPS_RATE = {"flash_attention_tc": BF16_OPS_PER_S, "flash_attention_tf32": TF32_OPS_PER_S,
+            "cin_layer": TF32_OPS_PER_S}
 
 
 def kernel_row(op, args, kw, launches, err, ms, plain_ms, library_ms=None) -> dict:
@@ -825,6 +857,8 @@ KERNEL_INFO = {
                         "src/repro/extras/flash_attention/flash_attention.py:86"),
     "flash_attention_tc": ("src/repro_torch/csrc/flash_attention_tc.cu",
                            "src/repro/extras/flash_attention/flash_attention.py:86"),
+    "flash_attention_tf32": ("src/repro_torch/csrc/flash_attention_tf32.cu",
+                             "src/repro/extras/flash_attention/flash_attention.py:86"),
 }
 
 
@@ -1098,7 +1132,9 @@ def phase_ops(recorder) -> list[dict]:
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
             f"{work(op, args, {})[0] / 1e6:.1f} MB), launches {counts[op]}; device time by a "
             f"CUDA graph of 20 calls {graph_ms(lambda: fn(*args)):.4f} ms a call"
-            + ("" if op == "bitset_unpack" else f"; {eager_times(lambda: fn(*args))}")
+            f"; {eager_times(lambda: fn(*args))}"
+            + ("" if op != "bitset_unpack" else
+               f"; unpack_kernel: {ptxas_usage('bitset', 'unpack_kernel')}")
             # the sparse input needs its root_ok read and its output written
             + ("" if args is not sparse else "; " + same_bytes(lambda: rok.clone(),
                                                               "root_ok.clone()")))
@@ -1735,11 +1771,13 @@ def phase_lm(dev) -> list[dict]:
     from repro_torch.models.transformer import Transformer
     from repro_torch.train.step import make_serve_fns
 
-    TC, FMA = fa.FLASH_ATTENTION_TC.symbol, fa.FLASH_ATTENTION.symbol
+    def moved_by_route() -> dict:
+        counts = cuda.launch_counts()
+        return {r: counts[k.symbol] for r, k in fa.ROUTES.items()}
 
     def routed(fn, want: str, what: str):
         """``fn()``, failing unless it launched route ``want`` once and the
-        other route not at all."""
+        other routes not at all."""
         before = cuda.launch_counts()
         out = fn()
         after = cuda.launch_counts()
@@ -1790,15 +1828,16 @@ def phase_lm(dev) -> list[dict]:
     cuda.reset_launch_counts()
     logits, cache = fns["prefill"](tokens)
     torch.cuda.synchronize()
-    n_prefill, n_prefill_fma = cuda.launch_counts()[TC], cuda.launch_counts()[FMA]
+    prefill_routes = moved_by_route()
+    n_prefill = prefill_routes["tc"]
     cuda.reset_launch_counts()
     out_k, grown, step_logits = greedy(fns, logits, cache, cfg, dev, T)
     torch.cuda.synchronize()
-    n_decode = cuda.launch_counts()[TC] + cuda.launch_counts()[FMA]
+    n_decode = sum(moved_by_route().values())
     peak = torch.cuda.max_memory_allocated()
-    if n_prefill != cfg.n_layers or n_prefill_fma != 0:
-        fail(f"a prefill of {cfg.n_layers} layers launched the tensor-core route {n_prefill} "
-             f"times and the FMA route {n_prefill_fma} times (expected {cfg.n_layers} and 0)")
+    if prefill_routes != {r: cfg.n_layers if r == "tc" else 0 for r in fa.ROUTES}:
+        fail(f"a bf16 prefill of {cfg.n_layers} layers launched the routes {prefill_routes} "
+             f"(expected the tensor-core route {cfg.n_layers} times, the others 0)")
     if n_decode != 0:
         fail(f"flash_attention launched {n_decode} times in {T} decode steps (expected 0)")
     if logits.shape != (B, S, cfg.vocab_size) or logits.dtype != torch.bfloat16:
@@ -1813,9 +1852,9 @@ def phase_lm(dev) -> list[dict]:
         fail(f"cache slots {cache.s_cap} / {grown.s_cap}, not {S} / {S + T}")
     log(f"[lm] path run: prefill {B} x {S} -> logits {tuple(logits.shape)} "
         f"{str(logits.dtype).removeprefix('torch.')}, cache {tuple(cache.data[0].shape)} x 2; "
-        f"{T} greedy decode steps into {S + T} slots; flash_attention launches: {n_prefill} of "
-        f"the tensor-core route and {n_prefill_fma} of the FMA route in the prefill "
-        f"({cfg.n_layers} layers), {n_decode} in decode; max_memory_allocated "
+        f"{T} greedy decode steps into {S + T} slots; flash_attention launches by route in the "
+        f"prefill ({cfg.n_layers} layers) {prefill_routes}, {n_decode} in decode; "
+        f"max_memory_allocated "
         f"{peak / 1e9:.3f} GB")
 
     # ---- each of the prefill's attentions against the plain version ---------
@@ -1840,36 +1879,81 @@ def phase_lm(dev) -> list[dict]:
 
     # ---- N(0,1) inputs at gemma's and qwen2-72b's heads ---------------------
     gen = torch.Generator(device=dev).manual_seed(1)
-    fma_row = None
+    tf32_row = fma_row = None
     for what, (b, s, nq, nkv, h), kw in (
             ("gemma-2b heads", (B, S, cfg.n_heads, cfg.n_kv_heads, cfg.d_head), {}),
             ("qwen2-72b heads", (1, 4096, 64, 8, 128), dict(window=1024, softcap=30.0))):
-        for dt, tol, rt in ((torch.float32, 2e-5, "fma"), (torch.bfloat16, 2e-2, "tc")):
+        for dt, tol, rt in ((torch.float32, 2e-5, "tf32"), (torch.bfloat16, 2e-2, "tc")):
             q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dt)
                        for sh in ((b, s, nq, h), (b, s, nkv, h), (b, s, nkv, h)))
             got = routed(lambda: cuda_k.flash_attention(q, k, v, **kw), rt, f"{what} {dt}")
             want = mha_reference(q, k, v, **kw)
             ratio, err = scaled_err(got.float(), want.float(), own_row_scale(want.float()),
                                     f"{what}, N(0,1), {dt}", tol=tol)
-            del got, want
+            del got
             ms = time_ms(lambda: cuda_k.flash_attention(q, k, v, **kw), reps=5)
             ops = work("flash_attention", (q, k, v), kw)[1]
+            fma = ""
+            if dt == torch.float32:
+                # the FMA kernel on the same call: the route fp32 took before
+                fma_out = fma_route(q, k, v, **kw)
+                fma_ratio, fma_err = scaled_err(fma_out.float(), want.float(),
+                                                own_row_scale(want.float()),
+                                                f"{what}, N(0,1), {dt}, FMA kernel", tol=tol)
+                del fma_out
+                fma_ms = time_ms(lambda: fma_route(q, k, v, **kw), reps=3)
+                qk_ops = ops / 2  # Q·Kᵀ's share, H of H + Hv: here Hv = H
+                fma = (f"; the FMA kernel on the same call {fma_ms:.4f} ms (largest ratio "
+                       f"{fma_ratio:.3e}); TF32 bound {ops / TF32_OPS_PER_S * 1e3:.4f} ms, split "
+                       f"TF32's three products {3 * ops / TF32_OPS_PER_S * 1e3:.4f} ms, Q·Kᵀ "
+                       f"alone at the fp32 rate {qk_ops / CUDA_CORE_OPS_PER_S * 1e3:.4f} ms")
+            del want
             log(f"[lm] {what} N(0,1) {str(dt).removeprefix('torch.')} q {(b, s, nq, h)} "
                 f"k/v {(b, s, nkv, h)} {kw}, {rt} route: within {tol:g} of each row's max|plain| "
                 f"(largest ratio {ratio:.3e}, |kernel - plain| {err:.3e}); kernel {ms:.4f} ms, "
                 f"{ops / ms / 1e9:.2f} TFLOP/s (fp32-FMA bound {ops / CUDA_CORE_OPS_PER_S * 1e3:.4f} "
-                f"ms, bf16 tensor bound {ops / BF16_OPS_PER_S * 1e3:.4f} ms)")
-            if fma_row is None and rt == "fma":
-                # the FMA route's row: fp32 at gemma's served shape (its launches
-                # are the fp32 prefill's, below)
+                f"ms, bf16 tensor bound {ops / BF16_OPS_PER_S * 1e3:.4f} ms){fma}")
+            if tf32_row is None and rt == "tf32":
+                # the split-TF32 route's row and the FMA kernel's: fp32 at gemma's
+                # served shape (the tf32 route's launches are the fp32
+                # prefill's, below)
                 plain_ms = time_ms(lambda: mha_reference(q, k, v, **kw), reps=3)
                 qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
                 sdpa = torch.nn.functional.scaled_dot_product_attention
                 lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
                 del qt, kt, vt
-                fma_row = kernel_row("flash_attention", (q, k, v), kw, None, err, ms, plain_ms,
-                                     lib_ms)
+                tf32_row = kernel_row("flash_attention_tf32", (q, k, v), kw, None, err, ms,
+                                      plain_ms, lib_ms)
+                fma_row = kernel_row("flash_attention", (q, k, v), kw, None, fma_err, fma_ms,
+                                     plain_ms, lib_ms)
             del q, k, v
+
+    # ---- the FMA kernel's own shapes: head dims TMA cannot describe, and
+    # more query heads a kv head than a tile's rows; counted ------------------
+    fma_cases = (("fp32, head_dim 250", (1, 2048, 8, 1, 250), torch.float32, 2e-5),
+                 ("bf16, 128 query heads on 1", (1, 1024, 128, 1, 64), torch.bfloat16, 2e-2))
+    fma_inputs = [tuple(torch.randn(sh, generator=gen, device=dev).to(dt)
+                        for sh in ((b, s, nq, h), (b, s, nkv, h), (b, s, nkv, h)))
+                  for _, (b, s, nq, nkv, h), dt, _ in fma_cases]
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    fma_outs = [cuda_k.flash_attention(*x) for x in fma_inputs]
+    torch.cuda.synchronize()
+    fma_routes = moved_by_route()
+    if fma_routes != {r: len(fma_cases) if r == "fma" else 0 for r in fa.ROUTES}:
+        fail(f"the FMA kernel's shapes launched the routes {fma_routes}")
+    fma_ratios = []
+    for (what, _, dt, tol), x, got in zip(fma_cases, fma_inputs, fma_outs):
+        want = mha_reference(*x)
+        fma_ratios.append(scaled_err(got.float(), want.float(), own_row_scale(want.float()),
+                                     f"FMA kernel, {what}", tol=tol)[0])
+    fma_row["launches"] = fma_routes["fma"]
+    log(f"[lm] the FMA kernel's own shapes, N(0,1), through Kernels.flash_attention: "
+        + "; ".join(f"{what} q {tuple(x[0].shape)} k/v {tuple(x[1].shape)} within {tol:g} of each "
+                    f"row's max|plain| (largest ratio {r:.3e})"
+                    for (what, _, _, tol), x, r in zip(fma_cases, fma_inputs, fma_ratios))
+        + f"; launches by route {fma_routes}")
+    del fma_inputs, fma_outs
 
     # ---- the kernel line's row: layer 0's attention on the served path ------
     q, k, v, kw = rec.args[0]
@@ -1934,11 +2018,12 @@ def phase_lm(dev) -> list[dict]:
     cuda.reset_launch_counts()
     got = fns["prefill"](toks)[0]
     torch.cuda.synchronize()
-    n_fp32 = cuda.launch_counts()[FMA]
-    if n_fp32 != cfg.n_layers or cuda.launch_counts()[TC] != 0:
-        fail(f"fp32 prefill launched the FMA route {n_fp32} times and the tensor-core route "
-             f"{cuda.launch_counts()[TC]} times, not {cfg.n_layers} and 0")
-    fma_row["launches"] = n_fp32
+    fp32_routes = moved_by_route()
+    n_fp32 = fp32_routes["tf32"]
+    if fp32_routes != {r: cfg.n_layers if r == "tf32" else 0 for r in fa.ROUTES}:
+        fail(f"the fp32 prefill launched the routes {fp32_routes}, not the split-TF32 route "
+             f"{cfg.n_layers} times and the others 0")
+    tf32_row["launches"] = n_fp32
     # the kernel path's stream, and two free-running streams: the plain
     # version's, and the plain version's in float64
     others = {"plain": "torch", "float64-plain": plain_float64()}
@@ -1976,7 +2061,8 @@ def phase_lm(dev) -> list[dict]:
                      for name in others}
         at_logits["plain vs float64-plain"] = logits_diff(free_logits["plain"],
                                                           free_logits["float64-plain"])
-    log(f"[lm] fp32 gemma-2b (TF32 off), {toks.shape[0]} x {toks.shape[1]} tokens, layer by "
+    log(f"[lm] fp32 gemma-2b (TF32 off), {toks.shape[0]} x {toks.shape[1]} tokens, attention "
+        f"launches by route {fp32_routes}; layer by "
         f"layer on a shared input: every layer's output and the logits within 1e-4 of each "
         f"row's max|plain| (largest ratio by layer {[f'{r:.2e}' for r in layer_ratios]}; "
         f"logits {ratio:.3e}, |kernel - plain| {err:.3e}); the kernel stream's logits equal "
@@ -1989,7 +2075,7 @@ def phase_lm(dev) -> list[dict]:
         + f"; at the logits {[f'{k} {r:.3e}' for k, (r, _) in at_logits.items()]}")
     del model, fns, logits_k, free, free_logits
     torch.cuda.empty_cache()
-    return [row, fma_row]
+    return [row, tf32_row, fma_row]
 
 
 # ------------------------------------------------------------------- main

@@ -30,9 +30,15 @@
 // padded copy. The last word, and every word of a mask whose data start
 // off 16-byte alignment (a slice), read their bytes one at a time.
 // unpack: the output (32 bytes per word) is 8 times the input, so the
-// stores are what count: one thread per 4 bits writes its 4 bools as one
-// 4-byte store, a warp 128 contiguous bytes; the word read is shared by 8
-// neighbouring threads and comes from L1.
+// stores are what count. A lane takes 16 bits, one 2-byte load of half a
+// word (bits 16h .. 16h + 15 of the words on this little-endian card), and
+// writes their 16 bools as one 16-byte store (bool_vector); lane t of a
+// warp writes bytes 16t .. 16t + 15 of the warp's 512-byte span, so every
+// store instruction of a warp covers 512 contiguous bytes, whole sectors.
+// A warp walks kUnpackSpans such spans, a thread's loads all issued before
+// its stores. The words of a slice start on a 4-byte boundary, so the
+// half-word loads need no aligned path; the output (the wrapper's) starts
+// on a 16-byte one, and the entry point refuses another.
 // candidate_filter: sixteen edges a thread, read lazily by group. Their
 // root_ok bytes come in as one 16-byte load; a group with no flag set
 // stores sixteen zero bytes and reads nothing else, so a sparse root_ok
@@ -158,11 +164,20 @@ __global__ void pack_kernel(const uint8_t* __restrict__ mask, long long n, long 
     words[w] = bits;
 }
 
-__global__ void unpack_kernel(const uint32_t* __restrict__ words, long long n_quads,
-                              uint32_t* __restrict__ out) {
-    long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // bits 4q .. 4q+3
-    if (q >= n_quads) return;
-    out[q] = nibble_bytes(words[q >> 3] >> ((q & 7) * 4));  // bit 4q in the lowest byte
+// 512-byte spans of output a warp: four half words a thread
+constexpr int kUnpackSpans = 4;
+
+__global__ void unpack_kernel(const uint16_t* __restrict__ halves, long long n_halves,
+                              uint4* __restrict__ out) {
+    const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const long long h0 = warp * 32 * kUnpackSpans + (threadIdx.x & 31);  // half words h0 + 32i
+    uint32_t bits[kUnpackSpans];
+#pragma unroll
+    for (int i = 0; i < kUnpackSpans; ++i)
+        bits[i] = h0 + 32 * i < n_halves ? halves[h0 + 32 * i] : 0u;
+#pragma unroll
+    for (int i = 0; i < kUnpackSpans; ++i)
+        if (h0 + 32 * i < n_halves) out[h0 + 32 * i] = bool_vector(bits[i]);  // bit 16h first
 }
 
 __global__ void cand_filter_kernel(const uint32_t* __restrict__ words, int n_words,
@@ -246,10 +261,14 @@ extern "C" int bitset_pack(const void* mask, long long n, void* words, void* str
     return (int)cudaGetLastError();
 }
 
+// n_words words → 32 · n_words bools, out 16-byte aligned; launches
+// nothing for n_words == 0.
 extern "C" int bitset_unpack(const void* words, long long n_words, void* out, void* stream) {
-    long long n_quads = n_words * 8;
-    unpack_kernel<<<blocks_for(n_quads), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, n_quads, (uint32_t*)out);
+    if (n_words == 0) return 0;
+    if (!aligned16({out})) return (int)cudaErrorMisalignedAddress;
+    const long long n_halves = 2 * n_words;
+    unpack_kernel<<<blocks_for((n_halves + kUnpackSpans - 1) / kUnpackSpans), kThreads, 0,
+                    (cudaStream_t)stream>>>((const uint16_t*)words, n_halves, (uint4*)out);
     return (int)cudaGetLastError();
 }
 

@@ -5,13 +5,15 @@
 // Replaces flash_attention / _attn_kernel of
 // src/repro/extras/flash_attention/flash_attention.py for bfloat16 inputs
 // whose shapes TMA can describe (the wrapper's rule: H and Hv multiples of 8,
-// at most 256, at most 64 query heads a kv head); flash_attention.cu's fp32
-// FMA kernel takes float32 and every other shape. What it computes is that
-// kernel's function: logits in fp32, scaled, tanh(l/c)*c with a softcap, the
-// causal/window mask as -1e30, an online softmax with m started at -1e30 (a
-// row whose first tiles are wholly masked sums exp(0) garbage until its
-// first kept key, where corr = 0 wipes it), and acc / max(l, 1e-30) in bf16,
-// in the layout (B, S, Nq, H) with no transposes.
+// at most 256, at most 64 query heads a kv head); flash_attention_tf32.cu
+// takes float32 of such shapes (H and Hv multiples of 4), and
+// flash_attention.cu's fp32 FMA kernel every other shape. What it computes
+// is the FMA kernel's function: logits in fp32, scaled, tanh(l/c)*c with a
+// softcap, the causal/window mask as -1e30, an online softmax with m
+// started at -1e30 (a row whose first tiles are wholly masked sums exp(0)
+// garbage until its first kept key, where corr = 0 wipes it), and
+// acc / max(l, 1e-30) in bf16, in the layout (B, S, Nq, H) with no
+// transposes.
 //
 // Bound: operations. Q.K^T and P.V over the kept pairs are 2*(H + Hv)
 // operations a pair, against 2*(H + Hv) bytes a row: at gemma-2b's served
@@ -64,14 +66,17 @@
 // a first try here made ptxas serialize the wgmmas, C7514), ordering the
 // warpgroups against each other (ping-pong), and TMA stores of the output.
 //
+// The mbarrier, TMA, wgmma-descriptor, setmaxnreg and tensor-map pieces are
+// hopper.cuh's, shared with flash_attention_tf32.cu.
+//
 // The entry point returns cudaGetLastError() after its launch, the error
 // of raising the shared-memory limit, -1 when the driver has no
 // cuTensorMapEncodeTiled, or -2 when it refuses a descriptor.
 
 #include <cstdint>
-#include <cuda.h>  // CUtensorMap and its enums only: the driver is reached at run time
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -95,73 +100,6 @@ struct Smem {  // byte offsets from a 1024-aligned base; boxes [.][HD / 64][64 r
     static constexpr int qbar = empty + 8 * kStages;
     static constexpr int bytes = qbar + 8 + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-                 : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done = 0;
-    while (!done) {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    }
-}
-
-__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5, %6}], [%2];"
-        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-        "r"(c3)
-        : "memory");
-}
-__device__ __forceinline__ void tma_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2, int c3, int c4) {
-    asm volatile(
-        "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
-        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-        "r"(c3), "r"(c4)
-        : "memory");
-}
-
-// A wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1 =
-// 128B swizzle. K-major tiles (Q, K): rows of 128 bytes, 8-row groups 1024
-// bytes apart (SBO), the leading offset unused. The MN-major V tile: 8-key
-// groups 1024 bytes apart (SBO), 64-column boxes kBoxBytes apart (LBO).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-           ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma's issue and wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
     asm volatile(
@@ -243,13 +181,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             mbar_init(empty0 + 8 * s, 128 * kConsumers);
         }
         mbar_init(qbar, 1);
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        mbar_init_fence();
     }
     __syncthreads();
 
     if (threadIdx.x >= 128 * kConsumers) {
         // ---- producer warpgroup: one thread issues every copy ---------------
-        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+        setmaxnreg_dec<24>();
         if (threadIdx.x != 128 * kConsumers) return;
         mbar_expect_tx(qbar, kConsumers * nqb * kBoxCols * G * P * 2);
         for (int w = 0; w < kConsumers; ++w)
@@ -272,7 +210,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // ---- consumer warpgroups ------------------------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    setmaxnreg_inc<240>();
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
@@ -316,7 +254,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kc = 0; kc < HD / 16; ++kc) {
             if (kc < nqk) {
                 const uint32_t off = (kc / 4) * kBoxBytes + (kc % 4) * 32;
-                wgmma_qk(s, smem_desc(q_base + off, 16, 1024), smem_desc(k_base + off, 16, 1024),
+                wgmma_qk(s, desc_sw128(q_base + off, 16, 1024), desc_sw128(k_base + off, 16, 1024),
                          kc > 0);
             }
         }
@@ -378,7 +316,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-            wgmma_pv(o, pa[kk], smem_desc(v_base + kk * 16 * 128, kBoxBytes, 1024));
+            wgmma_pv(o, pa[kk], desc_sw128(v_base + kk * 16 * 128, kBoxBytes, 1024));
         wg_commit();
         wg_wait_all();
         fence_regs(o);
@@ -409,39 +347,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {  // cuTensorMapEncodeTiled, from the driver at run time
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-        cudaError_t err =
-            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-    }
-    return fn;
-}
-
-// A bf16 tensor map of `rank` dims (innermost first), byte strides of dims
-// 1.., a box of `box` elements, 128-byte swizzle, zero fill out of bounds.
-bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int rank,
-              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
-    const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr),
-                  dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* out, int B,
            int S, int Nq, int Nkv, int H, int Hv, float scale, int window, float softcap,
@@ -470,13 +375,15 @@ extern "C" int flash_attention_tc(const void* q, const void* k, const void* v, v
     if (encode == nullptr) return -1;
     const int G = Nq / Nkv, P = kRows / G;
     const cuuint64_t e = 2;  // bytes of a bf16
+    const auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const auto kSw128 = CU_TENSOR_MAP_SWIZZLE_128B;
     CUtensorMap mq, mk, mv;
     {  // q as (H, G, Nkv, S, B); a box is the 64 columns of P positions x G heads
         const cuuint64_t dims[5] = {(cuuint64_t)H, (cuuint64_t)G, (cuuint64_t)Nkv, (cuuint64_t)S,
                                     (cuuint64_t)B};
         const cuuint64_t strides[4] = {e * H, e * H * G, e * H * Nq, e * H * Nq * S};
         const cuuint32_t box[5] = {kBoxCols, (cuuint32_t)G, 1, (cuuint32_t)P, 1};
-        if (!make_map(&mq, encode, q, 5, dims, strides, box)) return -2;
+        if (!make_map(&mq, encode, kBf16, kSw128, q, 5, dims, strides, box)) return -2;
     }
     {  // k, v as (H, Nkv, S, B); a box is the 64 columns of 64 keys
         const cuuint32_t box[4] = {kBoxCols, 1, kKeys, 1};
@@ -484,8 +391,8 @@ extern "C" int flash_attention_tc(const void* q, const void* k, const void* v, v
         const cuuint64_t kstr[3] = {e * H, e * H * Nkv, e * H * Nkv * S};
         const cuuint64_t vdims[4] = {(cuuint64_t)Hv, (cuuint64_t)Nkv, (cuuint64_t)S, (cuuint64_t)B};
         const cuuint64_t vstr[3] = {e * Hv, e * Hv * Nkv, e * Hv * Nkv * S};
-        if (!make_map(&mk, encode, k, 4, kdims, kstr, box) ||
-            !make_map(&mv, encode, v, 4, vdims, vstr, box))
+        if (!make_map(&mk, encode, kBf16, kSw128, k, 4, kdims, kstr, box) ||
+            !make_map(&mv, encode, kBf16, kSw128, v, 4, vdims, vstr, box))
             return -2;
     }
     const cudaStream_t st = (cudaStream_t)stream;

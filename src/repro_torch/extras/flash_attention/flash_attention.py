@@ -1,5 +1,6 @@
 """Wrapper of the causal GQA flash-attention CUDA kernels
-(``csrc/flash_attention_tc.cu``, ``csrc/flash_attention.cu``).
+(``csrc/flash_attention_tc.cu``, ``csrc/flash_attention_tf32.cu``,
+``csrc/flash_attention.cu``).
 
 `flash_attention` replaces ``flash_attention`` (body ``_attn_kernel``) of
 ``src/repro/extras/flash_attention/flash_attention.py``: forward attention
@@ -8,20 +9,27 @@ over ``Sq == Skv``. A block owns (position, query head) rows of one (batch,
 kv head) and walks the kv tiles they need with an fp32 online softmax;
 tiles wholly above the diagonal or outside the window are skipped.
 
-Two routes, chosen by `route` on dtype and shape alone:
+Three routes, chosen by `route` on dtype and shape alone:
 
 - ``"tc"`` (``flash_attention_tc``): bfloat16 with ``H`` and ``Hv``
   multiples of 8 and at most 64 query heads a kv head. Both products on
   the tensor cores (``wgmma``), every tile through TMA — whose descriptors
   need each row stride a multiple of 16 bytes, hence the multiples of 8;
-  P is rounded to bf16 before P·V. An input off a 16-byte boundary (a
-  view at an odd offset) is copied to an aligned one first.
-- ``"fma"`` (``flash_attention``): everything else — float32, and bf16
-  head dims TMA cannot describe — on fp32 FMAs, exact up to summation
-  order.
+  P is rounded to bf16 before P·V.
+- ``"tf32"`` (``flash_attention_tf32``): float32 with ``H`` and ``Hv``
+  multiples of 4 (16-byte rows) and at most 64 query heads a kv head. P·V
+  on the tensor cores in split TF32 (three TF32 products a term, hi·hi +
+  hi·lo + lo·hi, fp32 accuracy kept); Q·Kᵀ in fp32 FMAs in head-dim order,
+  the plain version's sum, in a warpgroup of its own; every tile through
+  TMA.
+- ``"fma"`` (``flash_attention``): everything else — head dims TMA cannot
+  describe, more than 64 query heads a kv head — on fp32 FMAs, exact up to
+  summation order.
 
-The layout is the JAX package's: ``q (B, S, Nq, H)``, ``k (B, S, Nkv, H)``,
-``v (B, S, Nkv, Hv)``, no transposes. A CPU tensor goes to the plain version
+A tensor-core route copies an input off a 16-byte boundary (a view at an
+odd offset) to an aligned one first. The layout is the JAX package's:
+``q (B, S, Nq, H)``, ``k (B, S, Nkv, H)``, ``v (B, S, Nkv, Hv)``, no
+transposes. A CPU tensor goes to the plain version
 (`repro_torch.extras.flash_attention.ref`); a CUDA tensor launches the
 kernel or raises: on a device mix, a dtype other than float32 or bfloat16
 (or two dtypes), a non-contiguous input, ``Sq != Skv``, ``Nq % Nkv``, ``H``
@@ -46,18 +54,26 @@ FLASH_ATTENTION_TC = CudaKernel(
     "flash_attention_tc", "flash_attention_tc",
     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F],
 )
-ROUTES = {"tc": FLASH_ATTENTION_TC, "fma": FLASH_ATTENTION}
+FLASH_ATTENTION_TF32 = CudaKernel(
+    "flash_attention_tf32", "flash_attention_tf32",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _F],
+)
+ROUTES = {"tc": FLASH_ATTENTION_TC, "tf32": FLASH_ATTENTION_TF32, "fma": FLASH_ATTENTION}
 MAX_HEAD_DIM = 256
 TC_MAX_GROUP = 64  # query heads a kv head: one position's heads fit a 64-row tile
+# head dims a TMA row takes: a row stride of 16-byte units
+TMA_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"tc"`` for bfloat16 with ``H``, ``Hv`` multiples of 8 and at most
-    `TC_MAX_GROUP` query heads a kv head, else ``"fma"``."""
+    """``"tc"`` for bfloat16 and ``"tf32"`` for float32 with ``H``, ``Hv``
+    whole 16-byte rows (multiples of 8 and 4) and at most `TC_MAX_GROUP`
+    query heads a kv head, else ``"fma"``."""
     H, Hv, G = q.shape[3], v.shape[3], q.shape[2] // max(k.shape[2], 1)
-    if q.dtype == torch.bfloat16 and H % 8 == 0 and Hv % 8 == 0 and G <= TC_MAX_GROUP:
-        return "tc"
-    return "fma"
+    n = TMA_MULTIPLE.get(q.dtype)
+    if n is None or H % n or Hv % n or G > TC_MAX_GROUP:
+        return "fma"
+    return "tc" if q.dtype == torch.bfloat16 else "tf32"
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -116,10 +132,11 @@ def launch(
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else H**-0.5
-    if route(q, k, v) == "tc":
+    r = route(q, k, v)
+    if r != "fma":
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
-        FLASH_ATTENTION_TC(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Nq,
-                           Nkv, H, Hv, float(scale), window or 0, float(softcap or 0.0))
+        ROUTES[r](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Nq, Nkv, H, Hv,
+                  float(scale), window or 0, float(softcap or 0.0))
         return out
     vec = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)) and H % 4 == 0 and Hv % 4 == 0
     FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Nq, Nkv,

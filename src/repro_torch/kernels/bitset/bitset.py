@@ -15,8 +15,9 @@ tensor launches the kernel or raises.
     pair — Hopper has ``atomicOr``, so one thread per id ORs its bit into
     words the same call zeroed; given a round's ``(n, width)`` columns it
     builds all ``width`` bitsets in that one call;
-  * `bitset_unpack` replaces ``bitset_unpack`` of the same file — one
-    thread per four bits, one 4-byte store of four bools;
+  * `bitset_unpack` replaces ``bitset_unpack`` of the same file — a lane
+    per half word (16 bits, one 2-byte load), one 16-byte store of its 16
+    bools, a warp's store 512 contiguous bytes;
   * `candidate_filter` replaces ``candidate_filter`` of the same file —
     sixteen edges a thread, read lazily: one 16-byte load of their
     ``root_ok`` bytes, the labels only of flagged edges, the ids only of

@@ -31,7 +31,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("bitset", "stwig_expand", "hash_join", "cin", "segment_mp", "join_probe",
-           "flash_attention", "flash_attention_tc")
+           "flash_attention", "flash_attention_tc", "flash_attention_tf32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

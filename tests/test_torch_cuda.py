@@ -207,12 +207,24 @@ def test_hash_join_probe(dev, cap_a, cap_b, nk, dup, route):
     assert hash_join.last_route() == route
 
 
-@pytest.mark.parametrize("W", [1, 7, 117962])
+@pytest.mark.parametrize("W", [1, 7, 16, 17, 64, 117962])
 def test_bitset_unpack(dev, W):
+    """Words whose half-word lanes end inside a warp's 512-byte span (W 1,
+    7, 17), fill one (16) and spill into a second warp's (64)."""
     rng = np.random.default_rng(W)
     words = rng.integers(0, 2**32, W, dtype=np.uint32)
     words[:1] = 0xFFFFFFFF
     same("bitset_unpack", (on(dev, words),))
+
+
+@pytest.mark.parametrize("off", [1, 3])
+def test_bitset_unpack_unaligned_start(dev, off):
+    """A slice of words that starts at an odd word (4 bytes past a 16-byte
+    boundary, or 12): its half words are 2-byte aligned all the same."""
+    rng = np.random.default_rng(off)
+    words = on(dev, rng.integers(0, 2**32, 1000, dtype=np.uint32))[off:off + 517]
+    assert words.data_ptr() % 16
+    same("bitset_unpack", (words,))
 
 
 def filter_inputs(E, root_ok="random", W=37, seed=None):
@@ -558,35 +570,61 @@ def test_flash_attention(dev, B, S, Nq, Nkv, H, Hv, window, softcap, dtype):
     assert ((got.float() - want.float()).abs() <= tol * scale).all()
 
 
-@pytest.mark.parametrize("B,S,Nq,Nkv,H,Hv,window,softcap,route", [
-    (1, 15, 8, 1, 256, 256, None, None, "tc"),     # a block is 16 positions at G = 8: -1
-    (1, 16, 8, 1, 256, 256, None, None, "tc"),
-    (1, 17, 8, 1, 256, 256, None, 30.0, "tc"),     # +1, softcap
-    (1, 63, 8, 1, 256, 256, None, None, "tc"),     # a K/V tile is 64 keys: -1, +1
-    (1, 65, 8, 1, 256, 256, 7, None, "tc"),
-    (2, 127, 1, 1, 64, 64, None, None, "tc"),      # G = 1: 128 positions a block
-    (1, 129, 2, 2, 64, 64, None, None, "tc"),
-    (1, 130, 3, 1, 96, 96, None, None, "tc"),      # G = 3: 63 of a tile's 64 rows
-    (1, 100, 16, 1, 128, 128, 33, 30.0, "tc"),     # G = 16
-    (1, 300, 8, 1, 256, 64, 1, None, "tc"),        # Hv != H, the diagonal only
-    (1, 200, 8, 2, 128, 256, 1000, None, "tc"),    # window past S, Hv > H
-    (1, 70, 4, 1, 40, 24, 20, 50.0, "tc"),         # head dims not multiples of 16
-    (1, 70, 4, 2, 8, 8, None, None, "tc"),
-    (1, 70, 4, 2, 30, 30, None, None, "fma"),      # 60-byte rows: no TMA descriptor
-    (1, 70, 4, 2, 20, 36, 9, None, "fma"),
-    (1, 40, 128, 1, 64, 64, None, None, "fma"),    # 128 heads a kv head: over a tile
+@pytest.mark.parametrize("B,S,Nq,Nkv,H,Hv,window,softcap,route,dtype", [
+    # bf16: the tensor-core route and the FMA route
+    (1, 15, 8, 1, 256, 256, None, None, "tc", torch.bfloat16),  # 16 positions a block at G = 8: -1
+    (1, 16, 8, 1, 256, 256, None, None, "tc", torch.bfloat16),
+    (1, 17, 8, 1, 256, 256, None, 30.0, "tc", torch.bfloat16),     # +1, softcap
+    (1, 63, 8, 1, 256, 256, None, None, "tc", torch.bfloat16),     # a K/V tile is 64 keys: -1, +1
+    (1, 65, 8, 1, 256, 256, 7, None, "tc", torch.bfloat16),
+    (2, 127, 1, 1, 64, 64, None, None, "tc", torch.bfloat16),      # G = 1: 128 positions a block
+    (1, 129, 2, 2, 64, 64, None, None, "tc", torch.bfloat16),
+    (1, 130, 3, 1, 96, 96, None, None, "tc", torch.bfloat16),      # G = 3: 63 of a tile's 64 rows
+    (1, 100, 16, 1, 128, 128, 33, 30.0, "tc", torch.bfloat16),     # G = 16
+    (1, 300, 8, 1, 256, 64, 1, None, "tc", torch.bfloat16),        # Hv != H, the diagonal only
+    (1, 200, 8, 2, 128, 256, 1000, None, "tc", torch.bfloat16),    # window past S, Hv > H
+    (1, 70, 4, 1, 40, 24, 20, 50.0, "tc", torch.bfloat16),         # head dims not multiples of 16
+    (1, 70, 4, 2, 8, 8, None, None, "tc", torch.bfloat16),
+    (1, 70, 4, 2, 30, 30, None, None, "fma", torch.bfloat16),  # 60-byte rows: no TMA descriptor
+    (1, 70, 4, 2, 20, 36, 9, None, "fma", torch.bfloat16),
+    (1, 40, 128, 1, 64, 64, None, None, "fma", torch.bfloat16),  # 128 heads a kv head: over a tile
+    # float32: the split-TF32 route (a block is 64 / G positions, a K/V tile
+    # 64 keys, a box 32 head dims) and the FMA route
+    (1, 15, 8, 1, 256, 256, None, None, "tf32", torch.float32),   # 8 positions a block at G = 8
+    (1, 16, 8, 1, 256, 256, None, None, "tf32", torch.float32),
+    (1, 17, 8, 1, 256, 256, None, 30.0, "tf32", torch.float32),
+    (1, 63, 8, 1, 256, 256, None, None, "tf32", torch.float32),   # a tile's keys: -1, +1
+    (1, 64, 8, 1, 256, 256, 7, None, "tf32", torch.float32),
+    (1, 65, 8, 1, 256, 256, 7, None, "tf32", torch.float32),
+    (2, 127, 1, 1, 64, 64, None, None, "tf32", torch.float32),    # G = 1: 64 positions a block
+    (1, 128, 1, 1, 64, 64, None, 50.0, "tf32", torch.float32),
+    (1, 129, 2, 2, 64, 64, None, None, "tf32", torch.float32),
+    (1, 130, 3, 1, 96, 96, None, None, "tf32", torch.float32),    # G = 3: 63 of a block's 64 rows
+    (1, 100, 16, 1, 128, 128, 33, 30.0, "tf32", torch.float32),   # G = 16
+    (1, 100, 64, 1, 32, 32, None, None, "tf32", torch.float32),   # G = 64: one position a block
+    (1, 300, 8, 1, 256, 64, 1, None, "tf32", torch.float32),      # Hv != H, the diagonal only
+    (1, 200, 8, 2, 128, 256, 1000, None, "tf32", torch.float32),  # window past S, Hv > H
+    (1, 70, 4, 1, 36, 20, 20, 50.0, "tf32", torch.float32),  # head dims off a box: 36, 20
+    (1, 70, 4, 2, 8, 8, None, None, "tf32", torch.float32),
+    (1, 70, 4, 2, 4, 4, 3, None, "tf32", torch.float32),
+    (2, 300, 64, 8, 128, 128, 100, 30.0, "tf32", torch.float32),  # qwen2-72b's heads
+    (1, 70, 4, 2, 30, 30, None, None, "fma", torch.float32),  # 120-byte rows: no TMA descriptor
+    (1, 70, 4, 2, 20, 30, 9, None, "fma", torch.float32),
+    (1, 40, 128, 1, 64, 64, None, None, "fma", torch.float32),  # 128 heads a kv head: over a tile
 ])
-def test_flash_attention_routes(dev, B, S, Nq, Nkv, H, Hv, window, softcap, route):
-    """bf16 edges of the two routes: the tensor-core route at the packed-row
-    tile's and the K/V tile's edges, G 1, 3, 8, 16, head dims 8-256, Hv !=
-    H, window 1 and past S, softcap; the FMA route for shapes TMA cannot
-    describe. Each case asserts which route's counter moved; each output row
-    within ``2e-2 ·`` its max|plain|."""
+def test_flash_attention_routes(dev, B, S, Nq, Nkv, H, Hv, window, softcap, route, dtype):
+    """Edges of the three routes: the tensor-core routes at the packed-row
+    tile's and the K/V tile's edges, G 1, 3, 8, 16 (and 64 in fp32), head
+    dims 4-256, Hv != H, window 1 and past S, softcap; the FMA route for
+    shapes TMA cannot describe, in both dtypes. Each case asserts which
+    route's counter moved; each output row within ``tol ·`` its max|plain|
+    (bf16 2e-2, fp32 2e-5)."""
     from repro_torch.extras.flash_attention import flash_attention as fa
     from repro_torch.extras.flash_attention.ref import mha_reference
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(S * 13 + H + Nq)
-    q, k, v = (on(dev, rng.normal(size=sh).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = (on(dev, rng.normal(size=sh).astype(np.float32)).to(dtype)
                for sh in ((B, S, Nq, H), (B, S, Nkv, H), (B, S, Nkv, Hv)))
     assert fa.route(q, k, v) == route
     moved = route_counter(route)
@@ -594,14 +632,16 @@ def test_flash_attention_routes(dev, B, S, Nq, Nkv, H, Hv, window, softcap, rout
     want = mha_reference(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
     moved.check()
-    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.dtype == dtype and got.shape == want.shape
     assert torch.isfinite(got).all()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
     scale = want.float().abs().amax(dim=-1, keepdim=True)
-    assert ((got.float() - want.float()).abs() <= 2e-2 * scale).all()
+    assert ((got.float() - want.float()).abs() <= tol * scale).all()
 
 
-def test_flash_attention_tc_takes_unaligned_views(dev):
-    """Views that start off a 16-byte boundary take the tensor-core route
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"), (torch.float32, "tf32")])
+def test_flash_attention_tc_takes_unaligned_views(dev, dtype, route):
+    """Views that start off a 16-byte boundary take their tensor-core route
     (copied to aligned storage first): the same output as aligned copies."""
     from repro_torch.extras.flash_attention import flash_attention as fa
 
@@ -609,10 +649,10 @@ def test_flash_attention_tc_takes_unaligned_views(dev):
     shapes = ((1, 40, 8, 256), (1, 40, 1, 256), (1, 40, 1, 256))
     views = []
     for sh in shapes:
-        flat = on(dev, rng.normal(size=int(np.prod(sh)) + 1).astype(np.float32)).to(torch.bfloat16)
+        flat = on(dev, rng.normal(size=int(np.prod(sh)) + 1).astype(np.float32)).to(dtype)
         views.append(flat[1:].view(sh))
     assert all(t.data_ptr() % 16 for t in views)
-    moved = route_counter("tc")
+    moved = route_counter(route)
     got = fa.flash_attention(*views)
     torch.cuda.synchronize()
     moved.check()
@@ -622,10 +662,12 @@ def test_flash_attention_tc_takes_unaligned_views(dev):
 def test_lm_on_card_matches_the_cpu(dev):
     """gemma-2b and qwen2-72b smoke configs (fp32), the same weights on card
     and CPU: prefill logits and the decode step within ``1e-4 ·`` each row's
-    max|cpu|, TF32 off; the prefill launches one kernel a layer."""
+    max|cpu|, TF32 off; the prefill launches one kernel a layer, on the
+    split-TF32 route (head dims 32 and 16)."""
     import dataclasses
 
     from repro_torch.configs import gemma_2b, qwen2_72b
+    from repro_torch.extras.flash_attention import flash_attention as fa
     from repro_torch.data.pipeline import lm_batch
     from repro_torch.models.transformer import Transformer
     from repro_torch.train.step import make_serve_fns
@@ -638,10 +680,11 @@ def test_lm_on_card_matches_the_cpu(dev):
         cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
         assert gpu.kernels.name == "cuda" and cpu.kernels.name == "torch"
         tokens = lm_batch(cfg, 2, 130, seed=0, step=0)["tokens"]
-        before = cuda.launch_counts()["flash_attention"]
+        before = {r: cuda.launch_counts()[k.symbol] for r, k in fa.ROUTES.items()}
         f_gpu, f_cpu = make_serve_fns(cfg, gpu), make_serve_fns(cfg, cpu)
         got, c_gpu = f_gpu["prefill"](tokens)
-        assert cuda.launch_counts()["flash_attention"] == before + cfg.n_layers
+        assert {r: cuda.launch_counts()[k.symbol] - before[r] for r, k in fa.ROUTES.items()} == {
+            r: cfg.n_layers if r == "tf32" else 0 for r in fa.ROUTES}
         want, c_cpu = f_cpu["prefill"](tokens)
         scale = want.abs().amax(dim=-1, keepdim=True)
         assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), cfg.name

@@ -54,6 +54,6 @@ def test_the_port_has_its_modules():
         assert f"src/repro_torch/{mod}" in names
     for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu",
                 "segment_mp.cu", "join_probe.cu", "probe.cuh", "flash_attention.cu",
-                "flash_attention_tc.cu"):
+                "flash_attention_tc.cu", "flash_attention_tf32.cu", "hopper.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists()
     assert (ROOT / "chip_smoke.py").exists()

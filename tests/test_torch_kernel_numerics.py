@@ -1,4 +1,4 @@
-"""The arithmetic of the port's two tensor-core kernels, emulated on the CPU.
+"""The arithmetic of the port's tensor-core kernels, emulated on the CPU.
 
 The CUDA kernels run only on the card (``tests/test_torch_cuda.py``); these
 tests check their numeric designs where the tests run, against the plain
@@ -9,6 +9,15 @@ versions they are held to there:
   (the only rounding the JAX kernel does not do), fp32 accumulation, the
   output rounded to bf16. Held to ``mha_reference`` within ``2e-2 ·`` each
   output row's max, the kernel's bound.
+- ``csrc/flash_attention_tf32.cu``: fp32 inputs; the logits as a chain of
+  fp32 FMAs in head-dim order (the plain version's sum); P·V in split TF32
+  (P and V split into hi and lo as `tf32_parts` does, three TF32 products a
+  term, the tensor core's fp32 sums rounded toward zero step by step) in
+  fresh accumulators a tile, added with a rounded FMA; the online softmax.
+  Held to ``mha_reference`` within ``2e-5 ·`` each output row's max at
+  gemma-2b's and qwen2-72b's heads (one TF32 product of P·V alone is not),
+  and at the fp32 model's init scale within 1e-5, where exact attention and
+  split-TF32 logits are not.
 - ``csrc/cin.cu``: split TF32 on ``P_h = w_hᵀ · x0`` for each ``h``. Each
   operand is split into hi (the fp32 bits with the low 13 mantissa bits
   cleared) and lo = x - hi, which the tensor core reads to 10 mantissa bits;
@@ -43,6 +52,9 @@ source, sixteen elements a thread (16-byte loads and stores, the filter's
 lazy reads by group, the ragged tail and unaligned arrays element by
 element), held to the port's plain versions and the JAX ``"jnp"`` ops,
 with the filter's reads checked against what its short-circuit allows.
+And ``bitset_unpack`` of the same source, a lane per half word and one
+16-byte store of its 16 bools, each warp store 512 contiguous bytes, held
+to ``unpack_reference`` with every byte written once.
 
 Inputs come from numpy seeds; the emulations live here, not in the port.
 """
@@ -118,6 +130,153 @@ def tf32_parts(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     hi = (x.view(torch.int32) & mask).view(torch.float32)
     lo = ((x - hi).view(torch.int32) & mask).view(torch.float32)
     return hi, lo
+
+
+def rz_float32(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` to float32 rounded toward zero, as the tensor core's
+    fp32 sums round."""
+    r = x.float()
+    return torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def tc_sum(pairs, d=None):
+    """Σ over k of ``a[..., k] · b[..., k, :]`` as a chain of TF32 wgmmas:
+    for each step of 8 k and each ``(a, b)`` pair in turn, the step's eight
+    products (exact in fp32: TF32 x TF32) added to the fp32 accumulator with
+    one rounding toward zero; ``d`` None starts at zero."""
+    K = pairs[0][0].shape[-1]
+    for k0 in range(0, K, 8):
+        for a, b in pairs:
+            step = a[..., k0:k0 + 8].double() @ b[..., k0:k0 + 8, :].double()
+            d = rz_float32(step if d is None else d.double() + step)
+    return d
+
+
+KEY_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]  # an 8-key step's keys in the V box's k order
+
+
+def fma_logits(qf, kf):
+    """``q · kᵀ`` over the last axis as a chain of fp32 FMAs, h = 0, 1, ... in
+    order (the exact product added, one rounding a step): ``(..., R, H)`` x
+    ``(..., K, H)`` → ``(..., R, K)``."""
+    s = torch.zeros(qf.shape[:-1] + (kf.shape[-2],))
+    for h in range(qf.shape[-1]):
+        s = (s.double() + qf[..., h, None].double() * kf[..., None, :, h].double()).float()
+    return s
+
+
+def attention_tf32_mirror(q, k, v, *, scale=None, window=None, softcap=None, products=3):
+    """``csrc/flash_attention_tf32.cu``'s rounding points in plain torch, fp32
+    ``(B, S, Nq, H)`` inputs: the logits by `fma_logits`; the online softmax
+    over 64-key tiles (x = s·scale, tanh(x/c)·c, the mask as -1e30, m started
+    at -1e30, expf); each tile's P·V in split TF32 — P and V split by
+    `tf32_parts`, a term lo·hi + hi·lo + hi·hi (``products=1``: hi·hi alone)
+    summed by `tc_sum` over the tile's keys in the V box's order — added as
+    O = fma(O, corr, P·V); O / max(l, 1e-30). A row's partial sums of l are
+    summed in another order than the kernel's four threads do (fp32 rounding
+    only)."""
+    B, S, Nq, H = q.shape
+    Nkv, Hv = k.shape[2], v.shape[3]
+    G = Nq // Nkv
+    scale = H**-0.5 if scale is None else scale
+    qf = q.reshape(B, S, Nkv, G, H).permute(0, 2, 3, 1, 4).reshape(B, Nkv, G * S, H)
+    pos = torch.arange(S).repeat(G)[:, None]  # rows (g, s)
+    kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    logits = fma_logits(qf, kf)
+    m = torch.full((B, Nkv, G * S), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros((B, Nkv, G * S, Hv))
+    for k0 in range(0, S, 64):
+        n = min(64, S - k0)
+        x = logits[..., k0:k0 + n] * scale
+        if softcap is not None:
+            x = torch.tanh(x / softcap) * softcap
+        keys = torch.arange(k0, k0 + n)[None, :]
+        ok = keys <= pos
+        if window is not None:
+            ok &= keys > pos - window
+        x = x.masked_fill(~ok, -1e30)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(x - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        # the tile's keys (zero-padded to whole 8-key steps) in the V box's order
+        pad = -n % 8
+        order = (torch.arange(0, n + pad, 8)[:, None] + torch.tensor(KEY_ORDER)).reshape(-1)
+        pp = torch.nn.functional.pad(p, (0, pad))[..., order]
+        vv = torch.nn.functional.pad(vf[:, :, k0:k0 + n], (0, 0, 0, pad))[:, :, order]
+        (p_hi, p_lo), (v_hi, v_lo) = tf32_parts(pp), tf32_parts(vv)
+        pairs = [(p_lo, v_hi), (p_hi, v_lo), (p_hi, v_hi)] if products == 3 else [(p_hi, v_hi)]
+        o = (o.double() * corr[..., None].double() + tc_sum(pairs).double()).float()
+        m = m_new
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Nkv, G, S, Hv).permute(0, 3, 1, 2, 4).reshape(B, S, Nq, Hv)
+
+
+def row_ratio(got, want):
+    """The largest over rows of max|got - want| / max|want| (last axis)."""
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+
+
+@pytest.mark.parametrize("B,S,Nq,Nkv,H,window,softcap", [
+    (1, 300, 8, 1, 256, None, None),    # gemma-2b's heads: 8 on 1, head_dim 256
+    (1, 300, 16, 2, 128, 100, 30.0),    # qwen2-72b's: 8 a kv head, head_dim 128, window, softcap
+])
+def test_attention_split_tf32_within_bound(B, S, Nq, Nkv, H, window, softcap):
+    """N(0,1) fp32 inputs: the split-TF32 route's arithmetic within ``2e-5 ·``
+    each output row's max|plain| (the fp32 routes' bound), one TF32 product
+    a term of P·V alone not."""
+    rng = np.random.default_rng(S + Nq + H)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+               for sh in ((B, S, Nq, H), (B, S, Nkv, H), (B, S, Nkv, H)))
+    want = mha_reference(q, k, v, window=window, softcap=softcap)
+    got = attention_tf32_mirror(q, k, v, window=window, softcap=softcap)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    split = row_ratio(got, want)
+    one = row_ratio(attention_tf32_mirror(q, k, v, window=window, softcap=softcap, products=1),
+                    want)
+    assert split <= 2e-5, split
+    assert one > 2e-5 > 2 * split, (one, split)
+
+
+def attention_float64(q, k, v):
+    """Causal attention computed in float64 throughout: the control for how
+    far an fp32 rounding of it lies."""
+    B, S, Nq, H = q.shape
+    Nkv = k.shape[2]
+    qg = q.double().reshape(B, S, Nkv, Nq // Nkv, H)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.double()) * H**-0.5
+    pos = torch.arange(S)
+    p = torch.softmax(logits.masked_fill(pos[None, :] > pos[:, None], -1e30), dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v.double()).reshape(B, S, Nq, -1)
+
+
+def test_attention_split_tf32_sharpened_logits():
+    """Inputs at the scale of the random init the fp32 gemma-2b is checked
+    with (``chip_smoke.py`` ``[lm]``): q ~ 16·N(0,1), k and v ~ 45·N(0,1),
+    head_dim 256, so logits reach the hundreds and fp32 itself rounds a
+    logit by ~1e-3. There the plain version lies ~4e-4 of a row's max from
+    float64, past the 1e-4 the fp32 model's layers are held to, so exact
+    logits cannot hold it; logits summed as the plain version sums them
+    (`fma_logits`) do, and P·V in split TF32 adds next to nothing. Logits in
+    split TF32 on the tensor core (`tc_sum`, 32 head dims a piece) are held
+    to neither."""
+    rng = np.random.default_rng(7)
+    B, S, Nq, Nkv, H = 1, 256, 8, 1, 256
+    q, k, v = (torch.from_numpy((sd * rng.normal(size=sh)).astype(np.float32))
+               for sd, sh in ((16, (B, S, Nq, H)), (45, (B, S, Nkv, H)), (45, (B, S, Nkv, H))))
+    want = mha_reference(q, k, v)
+    exact = row_ratio(want.double(), attention_float64(q, k, v))
+    got = row_ratio(attention_tf32_mirror(q, k, v), want)
+    qf, kf = q[0].transpose(0, 1), k[0].transpose(0, 1)  # (heads, S, H)
+    (q_hi, q_lo), (k_hi, k_lo) = tf32_parts(qf), tf32_parts(kf.transpose(-1, -2))
+    tc = sum(tc_sum([(q_lo[..., c:c + 32], k_hi[..., c:c + 32, :]),
+                     (q_hi[..., c:c + 32], k_lo[..., c:c + 32, :]),
+                     (q_hi[..., c:c + 32], k_hi[..., c:c + 32, :])]) for c in range(0, H, 32))
+    fma = fma_logits(qf, kf)
+    assert exact > 1e-4, exact  # exact attention misses the plain version by more
+    assert got <= 1e-5, got
+    assert (tc != fma).float().mean() > 0.5  # the tensor core's logits round otherwise
 
 
 def test_cin_split_tf32_keeps_fp32_accuracy():
@@ -794,3 +953,53 @@ def test_candidate_filter_sixteen_a_thread(n):
             full = n // GROUP * GROUP
             empty = np.repeat((rok[:full].reshape(-1, GROUP) == 0).all(1), GROUP)
             assert not (read["label"][:full] & empty).any()
+
+
+# ------------------------------------------------------------- bitset_unpack
+UNPACK_SPANS = int(re.search(r"constexpr int kUnpackSpans = (\d+);", PACK_SRC)[1])
+
+
+def unpack_mirror(words):
+    """``csrc/bitset.cu``'s ``unpack_kernel`` in numpy: a lane per half word
+    (one 2-byte load: bits 16h .. 16h + 15 of the little-endian words), its
+    16 bools as one 16-byte ``bool_vector`` store at bytes 16h .. 16h + 15;
+    warp w's lane t takes half words 32 · kUnpackSpans · w + 32i + t. Returns
+    the output bytes, the writes of each, and each warp store's byte range
+    (start, end) over its lanes in range."""
+    halves = words.astype("<u4").view("<u2")
+    n = halves.shape[0]
+    out, writes = np.zeros(16 * n, np.uint8), np.zeros(16 * n, np.int64)
+    spans = []
+    n_warps = -(-n // (32 * UNPACK_SPANS))
+    lanes = np.arange(32)
+    for w in range(n_warps):
+        for i in range(UNPACK_SPANS):
+            h = 32 * UNPACK_SPANS * w + 32 * i + lanes
+            h = h[h < n]
+            if not h.size:
+                continue
+            vec = bool_vector(halves[h].astype(np.uint32))  # (lanes, 16)
+            byte = 16 * h[:, None] + np.arange(16)
+            out[byte] = vec
+            writes[byte] += 1
+            spans.append((int(byte.min()), int(byte.max()) + 1, h.size))
+    return out, writes, spans
+
+
+@pytest.mark.parametrize("W", [1, 7, 16, 17, 117_962])
+def test_bitset_unpack_half_word_lanes(W):
+    """Bit for bit `unpack_reference`; every byte written once; each warp
+    store of 32 lanes covers 512 contiguous bytes starting on a 512-byte
+    boundary (whole 32-byte sectors), a ragged last store fewer."""
+    from repro_torch.kernels.bitset import ref as port_ref
+
+    rng = np.random.default_rng(W)
+    words = rng.integers(0, 2**32, W, dtype=np.uint64).astype(np.uint32)
+    words[:1] = 0xFFFFFFFF
+    want = port_ref.unpack_reference(torch.from_numpy(words.view(np.int32))).numpy()
+    out, writes, spans = unpack_mirror(words)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out.view(bool), want)
+    for start, end, lanes in spans:
+        assert end - start == 16 * lanes and start % 512 == 0
+        assert lanes == 32 or end == out.shape[0]
