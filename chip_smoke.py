@@ -159,7 +159,7 @@ result lines are printed only when every phase passed):
      fp32 FMAs — and the fp32 CUDA-core bound printed beside it), and the FMA
      route's row on that same call (its launches those of its own shapes),
      its bound at the fp32 CUDA-core rate; both with fp32 SDPA as
-     ``library_ms``.
+     ``library_ms``, and both also timed by a CUDA graph (5 and 3 calls).
 
 Before the last line it prints the fourteen kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -1926,6 +1926,10 @@ def phase_lm(dev) -> list[dict]:
                                       plain_ms, lib_ms)
                 fma_row = kernel_row("flash_attention", (q, k, v), kw, None, fma_err, fma_ms,
                                      plain_ms, lib_ms)
+                log(f"[lm] {what} N(0,1) float32, device time by a CUDA graph: split-TF32 "
+                    f"route {graph_ms(lambda: cuda_k.flash_attention(q, k, v, **kw), n=5):.4f} "
+                    f"ms, the FMA kernel {graph_ms(lambda: fma_route(q, k, v, **kw), n=3):.4f} "
+                    f"ms a call")
             del q, k, v
 
     # ---- the FMA kernel's own shapes: head dims TMA cannot describe, and
