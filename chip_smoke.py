@@ -77,7 +77,26 @@ result lines are printed only when every phase passed):
      each input also by a CUDA graph of 20 calls, with `eager_times`, the
      sparse one beside ``root_ok.clone()`` (`same_bytes`); ``bitset_unpack``
      on the largest main-path bitset likewise;
-  7. a 2,000-node graph gives the same rows on the CPU and on the card;
+  sharded — the paper's engine (§4.3) on phase 3's graph in 16 hash shards
+     (``configs/stwig.py``'s 250,000 nodes a shard; 236,632 a shard here),
+     every shard on the card, opened with ``GraphSession.open(pg,
+     backend="sharded")`` once the local session is freed; phase 3's
+     queries and stream with the counts zeroed before and read after
+     (each of the matcher's five kernels > 0; a kernel launches once a
+     shard where the local path launches once), every row checked as an
+     embedding; at ``max_matches=0`` no row twice, and the local engine's
+     row set wherever the local result is complete (phase 3's queries, and
+     four smaller queries picked for a complete local result) and for
+     every query of one STwig; three repeats a query (wall and
+     explore/fetch/join/materialize times), one repeat traced with
+     ``torch.profiler`` (a measurement only), peak memory; the same queries
+     and stream with ``kernels="torch"`` give identical rows and pages,
+     and on the last shard's ids (global ids from 15 · 236,632 up) each
+     ``stwig_expand`` call and ``candidate_filter`` on each of its
+     children are bit-exact against the plain versions;
+  7. a 2,000-node graph gives the same rows on the CPU and on the card, on
+     the local engine and on the sharded one at S = 4 (smaller tables:
+     every CPU shard probes all four shards' tables);
   8. recsys — xDeepFM at its published widths (39 fields, 1,000,000 rows a
      field, embed 10, CIN 200-200-200, MLP 400-400, bag 4; random weights
      from seed 0) built on the card and served through ``make_serve_fns``:
@@ -194,6 +213,9 @@ PRODUCTS = dict(n_nodes=2_449_029, n_edges=61_859_140 // 2, n_labels=47, seed=0)
 # gemma-2b served at a cut of prefill_32k (32,768 tokens × batch 32): 2 prompts of
 # 8,192 tokens, then 32 greedy decode steps into a cache of 8,224 slots
 LM_SERVE = dict(batch=2, seq=8192, decode=32)
+# [small]'s 4 shards on the CPU: every shard probes the fetched tables of all
+# four, so the tables are kept small there (on the card too, for the same rows)
+SMALL_SHARDED_CAPS = dict(emission_budget=1 << 12, join_rows_cap=1 << 14)
 
 
 def log(msg: str) -> None:
@@ -1141,6 +1163,199 @@ def phase_ops(recorder) -> list[dict]:
         if what != "main-path input" or op == "bitset_unpack":
             rows.append(row)
     return rows
+
+
+# ------------------------------------------------------------ [sharded]
+def complete_queries(session, g, n: int = 4, tries: int = 200) -> list:
+    """Seeded DFS queries of 3-4 nodes whose local result at
+    ``max_matches=0`` is complete and not empty, as (query, row set, True):
+    the main path's queries overflow ``child_cap`` at the R-MAT's hubs."""
+    from repro_torch.workloads import dfs_query
+
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(tries):
+        q = dfs_query(g, rng, int(rng.integers(3, 5)))
+        if q is None:
+            continue
+        res = session.compile(q, max_matches=0).run(adaptive=False)
+        if res.complete and res.n_matches:
+            out.append((q, set(map(tuple, res.rows.tolist())), True))
+            if len(out) == n:
+                break
+    return out
+
+
+def phase_sharded(g, edge_keys, queries, local_full) -> None:
+    """The sharded engine (paper §4.3) with the paper's shard size
+    (`configs/stwig.py`: 250,000 nodes a shard) on the main path's graph and
+    queries, every shard on the card. ``local_full``: the local session's
+    (query, row set, complete) at ``max_matches=0`` of each main-path query
+    and of `complete_queries`."""
+    from repro_torch.api import GraphSession
+    from repro_torch.configs import stwig
+    from repro_torch.core.backend import Kernels, get_kernels
+    from repro_torch.graphstore.partition import PartitionedGraph
+    from repro_torch.kernels import cuda
+
+    S = -(-g.n_nodes // stwig.CONFIG.nodes_per_shard)
+    t0 = time.perf_counter()
+    pg = PartitionedGraph.build(g, S)
+    t_part = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    session = GraphSession.open(pg, backend="sharded")
+    torch.cuda.synchronize()
+    t_open = time.perf_counter() - t0
+    if session.kernels.name != "cuda":
+        fail(f"GraphSession.open(pg, backend='sharded') on the card chose "
+             f"{session.kernels.name!r}")
+    eng = session.engine
+    log(f"[sharded] {S} hash shards (the paper's {stwig.CONFIG.nodes_per_shard} nodes a shard): "
+        f"cap {pg.cap} nodes, edge_cap {pg.edge_cap} edges a shard, partition "
+        f"{pg.memory_bytes() / 1e6:.1f} MB, built in {t_part:.2f} s; session (cluster-graph "
+        f"index of {len(eng.cgi.pair_index)} label pairs, shards to the card) opened in "
+        f"{t_open:.2f} s; {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    rows_cuda, stream_cuda, report = run_queries(session, queries, queries[0])
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    for line in report:
+        log(f"[sharded] {line}")
+    log(f"[sharded] max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+        f"launches { {k: counts[k] for k in MATCHER_KERNELS} } (a launch per shard where "
+        f"the local path launches once)")
+    for sym in MATCHER_KERNELS:
+        if counts[sym] <= 0:
+            fail(f"kernel {sym} was never launched on the sharded path")
+    if not any(len(r) for r in rows_cuda):
+        fail("every sharded query returned 0 rows")
+    for q, rows in zip(queries, rows_cuda):
+        embedding_check(g, edge_keys, q, rows)
+    embedding_check(g, edge_keys, queries[0], np.concatenate(stream_cuda) if stream_cuda
+                    else np.zeros((0, queries[0].n_nodes), np.int64))
+    log(f"[sharded] every row of {len(queries)} queries + stream is a valid embedding")
+
+    # every match at max_matches=0: no duplicate across shards, and the
+    # local engine's set wherever the local result is complete. A query of
+    # one STwig is held even when incomplete: a root's first child_cap
+    # candidates are the same edges in both layouts (each shard keeps its
+    # nodes' edges in the graph's order), so the tables are the same set
+    n_complete = n_one = 0
+    sizes = []
+    for i, (q, want, complete) in enumerate(local_full):
+        res = session.compile(q, max_matches=0).run(adaptive=False)
+        got = set(map(tuple, res.rows.tolist()))
+        embedding_check(g, edge_keys, q, res.rows)
+        if len(got) != len(res.rows):
+            fail(f"q{i}: the sharded rows hold a duplicate")
+        one = len(res.stats.rounds) == 1
+        sizes.append((res.n_matches, res.complete, len(want), complete))
+        if complete and not res.complete:
+            fail(f"q{i}: the sharded result is incomplete where the local one is complete")
+        if (complete or one) and got != want:
+            fail(f"q{i}: the sharded engine's {res.n_matches} rows are not the local "
+                 f"engine's {len(want)}")
+        n_complete += complete
+        n_one += one and not complete
+    log(f"[sharded] max_matches=0, (sharded rows, complete, local rows, complete) a query "
+        f"(the {len(queries)} main-path queries, then {len(local_full) - len(queries)} smaller "
+        f"ones): "
+        f"{sizes}; no duplicates; equal to the local engine's set on the {n_complete} "
+        f"queries whose local result is complete and on {n_one} incomplete one-STwig ones")
+    if n_complete == 0:
+        fail("no query's local result was complete: nothing held the sharded rows")
+    for line in repeat_times(session, queries):
+        log(f"[sharded] {line}")
+    # where a repeat's time goes: the query with the most STwigs (a fetch
+    # and a join), traced once
+    i = max(range(len(queries)), key=lambda j: (
+        len(session.compile(queries[j]).plan.specs), len(queries[j].edges)))
+    compiled = session.compile(queries[i], max_matches=1024)
+    log(f"[sharded] q{i} repeat traced: "
+        f"{profile_line(device_profile(lambda: compiled.run(adaptive=False), reps=1))}")
+
+    # the plain versions on the card: the same rows and pages; the last
+    # shard's stwig_expand calls are kept to hold the kernels on its ids
+    last = eng.graphs[-1].indices.data_ptr()
+
+    class LastShard(Kernels):
+        def __init__(self):
+            self.expands = []
+
+        def stwig_expand(self, *args, **kw):
+            cand, cnt = super().stwig_expand(*args, **kw)
+            if args[1].data_ptr() == last:
+                self.expands.append((args, kw, cand, cnt))
+            return cand, cnt
+
+    recorder = LastShard()
+    session.set_kernels(recorder)
+    rows_torch, stream_torch, report = run_queries(session, queries, queries[0])
+    for line in report:
+        log(f"[sharded] torch: {line}")
+    for i, (a, b) in enumerate(zip(rows_cuda, rows_torch)):
+        if a.shape != b.shape or not (a == b).all():
+            fail(f"q{i}: sharded rows differ between kernels='cuda' and kernels='torch'")
+    if len(stream_cuda) != len(stream_torch) or not all(
+        (a.shape == b.shape) and (a == b).all() for a, b in zip(stream_cuda, stream_torch)
+    ):
+        fail("sharded stream pages differ between kernels='cuda' and kernels='torch'")
+    cuda_k, plain = get_kernels("cuda"), get_kernels("torch")
+    n_filter = 0
+    for args, kw, cand, cnt in recorder.expands:
+        got = cuda_k.stwig_expand(*args, **kw)
+        if not (torch.equal(got[0], cand) and torch.equal(got[1], cnt)):
+            fail(f"stwig_expand differs from its plain version on shard {S - 1}'s ids")
+        words_k, dst, lab, indptr, rok = args
+        for i, label in enumerate(kw["child_labels"]):
+            words = words_k[i] if kw["child_bound"][i] else torch.full_like(words_k[i], -1)
+            mask = cuda_k.candidate_filter(words, dst, lab, rok, label)
+            if not torch.equal(mask, plain.candidate_filter(words, dst, lab, rok, label)):
+                fail(f"candidate_filter differs from its plain version on shard {S - 1}")
+            cs = torch.cat([mask.new_zeros(1, dtype=torch.int64), torch.cumsum(mask, 0)])
+            sums = cs[indptr[1:kw["cap"] + 1].long()] - cs[indptr[:kw["cap"]].long()]
+            if not torch.equal(sums.to(torch.int32), cnt[i]):
+                fail(f"candidate_filter's per-root sums differ from stwig_expand's counts on "
+                     f"shard {S - 1}")
+            n_filter += 1
+    if not recorder.expands:
+        fail(f"the sharded path never expanded on shard {S - 1}")
+    log(f"[sharded] kernels='torch' on the card: rows and stream pages identical to "
+        f"kernels='cuda'; on shard {S - 1}'s ids (global ids {(S - 1) * pg.cap} and up) "
+        f"stwig_expand bit-exact on its {len(recorder.expands)} calls and candidate_filter on "
+        f"{n_filter} (call, child) inputs, its per-root sums equal to stwig_expand's counts")
+    del session, eng, recorder
+    torch.cuda.empty_cache()
+
+
+def sharded_small(small, queries, caps) -> str:
+    """The sharded engine at S = 4 on a small graph: the same rows on the
+    CPU and on the card, and the local engine's set where all are complete."""
+    from repro_torch.api import GraphSession
+    from repro_torch.graphstore.partition import PartitionedGraph
+
+    pg4 = PartitionedGraph.build(small, 4)
+    sh_cpu = GraphSession.open(pg4, device="cpu")
+    sh_gpu = GraphSession.open(pg4)
+    loc = GraphSession.open(small)
+    n_rows = n_same = 0
+    for q in queries:
+        a = sh_cpu.run(q, max_matches=0, **caps)
+        b = sh_gpu.run(q, max_matches=0, **caps)
+        if a.complete != b.complete or a.rows.shape != b.rows.shape or not (a.rows == b.rows).all():
+            fail("the 2,000-node graph's 4 shards give other rows on the CPU and on the card")
+        c = loc.run(q, max_matches=0, **caps)
+        if a.complete and c.complete:
+            if set(map(tuple, a.rows.tolist())) != set(map(tuple, c.rows.tolist())):
+                fail("the 2,000-node graph's 4 shards give other rows than its local session")
+            n_same += 1
+        n_rows += len(a.rows)
+    if n_same == 0:
+        fail("no small-graph query was complete on both engines: nothing held the 4 shards")
+    return (f"sharded at S = 4 ({caps}): {len(queries)} queries, {n_rows} rows, identical on "
+            f"CPU and card, the local session's set on the {n_same} complete ones")
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2139,6 +2354,14 @@ def main() -> None:
     log(f"[main] q{i} repeat traced: "
         f"{profile_line(device_profile(lambda: compiled.run(adaptive=False), reps=1))}")
 
+    # every match of each query, for [sharded]: (query, row set, complete);
+    # then smaller queries until four have a complete local result
+    local_full = []
+    for q in queries:
+        res = session.compile(q, max_matches=0).run(adaptive=False)
+        local_full.append((q, set(map(tuple, res.rows.tolist())), res.complete))
+    local_full += complete_queries(session, g)
+
     # ---- phase 4: the plain versions on the card, same rows ----------------
     recorder = recording_kernels()
     session.set_kernels(recorder)
@@ -2161,6 +2384,10 @@ def main() -> None:
     kernel_rows += phase_ops(recorder)
     probe_call = recorder.calls["hash_join_probe"]  # phase 10's inputs
     del session, recorder
+    torch.cuda.empty_cache()
+
+    # ---- [sharded]: the paper's engine, its 16 shards stacked on the card ---
+    phase_sharded(g, edge_keys, queries, local_full)
 
     # ---- phase 7: a small graph, CPU vs card -------------------------------
     small = generators.rmat(2000, 8000, 24, seed=0)
@@ -2174,6 +2401,7 @@ def main() -> None:
             fail("the 2,000-node graph gives other rows on the CPU and on the card")
         n_rows += len(a)
     log(f"[small] 2,000-node graph: 6 queries, {n_rows} rows, identical on CPU and card")
+    log(f"[small] {sharded_small(small, make_queries(small, 6, seed=1), SMALL_SHARDED_CAPS)}")
     del g, pg, edge_keys, s_cpu, s_gpu
     torch.cuda.empty_cache()
 

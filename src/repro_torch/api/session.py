@@ -1,15 +1,17 @@
-"""`GraphSession`: the facade over the engine.
+"""`GraphSession`: one facade over the local and sharded engines.
 
 The session is the unit of engine state: it owns the partitioned graph on
 its device, the engine, and the keyed `ExecutableCache` shared by every
-query compiled in it. The port has the local backend only.
+query compiled in it.
 """
 from __future__ import annotations
 
 from repro_torch.api.compiled import CompiledQuery
+from repro_torch.configs import stwig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
 from repro_torch.core.cache import ExecutableCache
 from repro_torch.core.deprecation import facade_construction
+from repro_torch.core.dist import DistributedMatcher
 from repro_torch.core.engine import SubgraphMatcher
 from repro_torch.core.plan import QueryPlan
 from repro_torch.core.query import QueryGraph
@@ -17,7 +19,7 @@ from repro_torch.core.result import MatchResult
 from repro_torch.graphstore.csr import Graph
 from repro_torch.graphstore.partition import PartitionedGraph
 
-BACKENDS = ("auto", "local")
+BACKENDS = ("auto", "local", "sharded")
 
 
 class GraphSession:
@@ -37,13 +39,27 @@ class GraphSession:
         cls,
         graph_or_pg: Graph | PartitionedGraph,
         *,
-        backend: str = "local",
+        backend: str = "auto",
         kernels: "str | Kernels" = "auto",
         device=None,
+        n_shards: int | None = None,
+        partition_mode: str = "hash",
         cache_size: int = 512,
     ) -> "GraphSession":
         """Open a session on ``device`` (``None``: the card; it raises if
-        there is none). A raw `Graph` is partitioned here into 1 shard.
+        there is none — there is no fallback to the CPU).
+
+        ``backend="auto"`` picks ``"sharded"`` for a partition of more than
+        one shard, or for a raw `Graph` with ``n_shards > 1``, else
+        ``"local"``. A raw `Graph` is partitioned here (``partition_mode``
+        ``"hash"`` or ``"range"``): into 1 shard for the local backend, into
+        ``n_shards`` for the sharded one, by default as many as keep the
+        paper's 250,000 nodes a shard (`repro_torch.configs.stwig`). The
+        local backend refuses a partition of more than one shard.
+
+        The sharded backend runs every shard on the one device, stacked
+        (`repro_torch.core.dist`), so unlike the JAX package it does not
+        ask for a device a shard: any S fits that the device's memory holds.
 
         ``kernels`` selects the kernel backend every dense inner step draws
         from — ``"auto"`` (the CUDA kernels on a CUDA device, the plain
@@ -55,18 +71,35 @@ class GraphSession:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         dev = resolve_device(device)
         kern = resolve_kernels(kernels, dev)
+        if backend == "auto":
+            if isinstance(graph_or_pg, PartitionedGraph):
+                backend = "sharded" if graph_or_pg.n_shards > 1 else "local"
+            elif n_shards is not None and n_shards > 1:
+                backend = "sharded"
+            else:
+                backend = "local"
         if isinstance(graph_or_pg, PartitionedGraph):
             pg = graph_or_pg
         else:
-            pg = PartitionedGraph.build(graph_or_pg, 1)
-        if pg.n_shards != 1:
-            raise ValueError(
-                f"the local backend needs a 1-shard partition, got {pg.n_shards} shards"
-            )
+            if backend == "local":
+                shards = 1
+            else:
+                shards = n_shards or max(
+                    1, -(-graph_or_pg.n_nodes // stwig.CONFIG.nodes_per_shard)
+                )
+            pg = PartitionedGraph.build(graph_or_pg, shards, mode=partition_mode)
         cache = ExecutableCache(maxsize=cache_size)
         with facade_construction():
-            engine = SubgraphMatcher(pg, device=dev, cache=cache, kernels=kern)
-        return cls(pg, engine, "local", cache)
+            if backend == "local":
+                if pg.n_shards != 1:
+                    raise ValueError(
+                        f"the local backend needs a 1-shard partition, got "
+                        f"{pg.n_shards} shards (use backend='sharded' or re-partition)"
+                    )
+                engine = SubgraphMatcher(pg, device=dev, cache=cache, kernels=kern)
+            else:
+                engine = DistributedMatcher(pg, device=dev, cache=cache, kernels=kern)
+        return cls(pg, engine, backend, cache)
 
     # ----------------------------------------------------------- query API
     def compile(self, query: QueryGraph, **caps) -> CompiledQuery:
@@ -102,14 +135,18 @@ class GraphSession:
         max_matches: int | None = None,
         block_rows: int | None = None,
         deadline_s: float | None = None,
+        engine_kw: dict | None = None,
         **caps,
     ):
-        """One-shot convenience: ``compile(query).stream(...)``."""
+        """One-shot convenience: ``compile(query).stream(...)``;
+        ``engine_kw`` carries engine options (e.g. ``{"use_ring": True}``
+        on the sharded backend), ``caps`` go to `compile`."""
         return self.compile(query, **caps).stream(
             page_size=page_size,
             max_matches=max_matches,
             block_rows=block_rows,
             deadline_s=deadline_s,
+            **(engine_kw or {}),
         )
 
     # ------------------------------------------------------------ plumbing
@@ -148,5 +185,6 @@ class GraphSession:
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (
             f"GraphSession(backend={self.backend!r}, device={str(self.device)!r}, "
-            f"kernels={self.kernels.name!r}, cache={len(self.cache)} steps)"
+            f"kernels={self.kernels.name!r}, n_shards={self.pg.n_shards}, "
+            f"cache={len(self.cache)} steps)"
         )

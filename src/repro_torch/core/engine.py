@@ -42,7 +42,7 @@ from repro_torch.core.result import MatchResult, MatchStats
 from repro_torch.graphstore.partition import PartitionedGraph
 from repro_torch.runtime.resilience import stage
 
-__all__ = ["SubgraphMatcher"]
+__all__ = ["CachedSteps", "SubgraphMatcher", "to_old_ids"]
 
 
 def _concat_tables(tables: list[STwigTable]) -> join_lib.JoinTable:
@@ -74,33 +74,29 @@ class _LocalStreamState:
     valid_host: np.ndarray  # (cap,) host bool mask of the blocked table
 
 
-class SubgraphMatcher:
-    """Single-device matcher over a 1-shard partitioned graph."""
+def to_old_ids(pg: PartitionedGraph, rows_new: np.ndarray) -> np.ndarray:
+    """Host rows of new (shard-block) ids → ORIGINAL ids, int64; the ghost
+    id ``n_total`` maps to -1."""
+    rows_old = np.where(
+        rows_new < pg.n_total,
+        pg.new_to_old[np.minimum(rows_new, pg.n_total - 1)],
+        -1,
+    )
+    return rows_old.astype(np.int64)
 
-    def __init__(
-        self,
-        pg: PartitionedGraph,
-        shard: int = 0,
-        *,
-        device,
-        cache: ExecutableCache | None = None,
-        kernels: "str | Kernels | None" = None,
-    ):
-        warn_direct_construction("SubgraphMatcher")
-        if not 0 <= shard < pg.n_shards:
-            raise ValueError(f"shard {shard} out of range for {pg.n_shards} shards")
-        self.pg = pg
-        self.device = torch.device(device)
-        self.cache = cache if cache is not None else ExecutableCache()
-        # the kernel backend every dense step draws from; reassignable at
-        # any time — cached steps are keyed by (static spec, kernels.name)
-        self.kernels = resolve_kernels(kernels, self.device)
-        # cumulative per-block join chains run on the streaming path; lets
-        # callers assert early-stopped streams skip work
-        self.join_block_calls = 0
-        self.g = ShardGraph.from_partition(pg, shard, self.device)
 
-    # ----------------------------------------------------- cached steps
+class CachedSteps:
+    """What both engines share: planning, and the MatchSTwig and join steps
+    keyed by static spec and kernel backend in the session's cache. A
+    subclass sets ``pg``, ``cache`` and ``kernels``."""
+
+    pg: PartitionedGraph
+    cache: ExecutableCache
+    kernels: Kernels
+
+    def plan(self, query: QueryGraph, **kw) -> QueryPlan:
+        return make_plan(query, self.pg.freq, **kw)
+
     def _match_fn(self, spec: STwigSpec):
         kern = self.kernels
         return self.cache.get(
@@ -134,9 +130,46 @@ class SubgraphMatcher:
             build,
         )
 
-    # ------------------------------------------------------------------ API
-    def plan(self, query: QueryGraph, **kw) -> QueryPlan:
-        return make_plan(query, self.pg.freq, **kw)
+    def _join_chain(
+        self, acc: join_lib.JoinTable, acc_schema: join_lib.Schema,
+        tables: list, schemas: list, rest, plan: QueryPlan,
+    ) -> tuple[join_lib.JoinTable, join_lib.Schema]:
+        """Join ``acc`` with ``tables[idx]`` for each ``idx`` of ``rest``,
+        in order."""
+        for idx in rest:
+            fn, merged = self._join_fn(
+                acc_schema, schemas[idx], plan.join_rows_cap, plan.join_dup_cap,
+                int(acc.cols.shape[0]), int(tables[idx].cols.shape[0]),
+            )
+            acc, acc_schema = fn(acc, tables[idx])[0], merged
+        return acc, acc_schema
+
+
+class SubgraphMatcher(CachedSteps):
+    """Single-device matcher over a 1-shard partitioned graph."""
+
+    def __init__(
+        self,
+        pg: PartitionedGraph,
+        shard: int = 0,
+        *,
+        device,
+        cache: ExecutableCache | None = None,
+        kernels: "str | Kernels | None" = None,
+    ):
+        warn_direct_construction("SubgraphMatcher")
+        if not 0 <= shard < pg.n_shards:
+            raise ValueError(f"shard {shard} out of range for {pg.n_shards} shards")
+        self.pg = pg
+        self.device = torch.device(device)
+        self.cache = cache if cache is not None else ExecutableCache()
+        # the kernel backend every dense step draws from; reassignable at
+        # any time — cached steps are keyed by (static spec, kernels.name)
+        self.kernels = resolve_kernels(kernels, self.device)
+        # cumulative per-block join chains run on the streaming path; lets
+        # callers assert early-stopped streams skip work
+        self.join_block_calls = 0
+        self.g = ShardGraph.from_partition(pg, shard, self.device)
 
     # -------------------------------------------------- streaming interface
     def _stream_setup(
@@ -183,17 +216,10 @@ class SubgraphMatcher:
         self.join_block_calls += 1
         state.stats.join_blocks += 1
         with stage(state.stats, "join"):
-            acc, acc_schema = blk, state.schemas[state.order[0]]
-            for idx in state.order[1:]:
-                fn, merged = self._join_fn(
-                    acc_schema,
-                    state.schemas[idx],
-                    state.plan.join_rows_cap,
-                    state.plan.join_dup_cap,
-                    int(acc.cols.shape[0]),
-                    int(state.tables[idx].cols.shape[0]),
-                )
-                acc, acc_schema = fn(acc, state.tables[idx])[0], merged
+            acc, acc_schema = self._join_chain(
+                blk, state.schemas[state.order[0]], state.tables, state.schemas,
+                state.order[1:], state.plan,
+            )
         with stage(state.stats, "materialize"):
             rows = self._materialize(acc, acc_schema, max_matches=0)
         return rows, bool(acc.overflow)
@@ -247,13 +273,7 @@ class SubgraphMatcher:
             keep = keep[:max_matches]
         rows_new = acc.cols[torch.as_tensor(keep, device=acc.cols.device)].cpu().numpy()
         perm = np.argsort(np.asarray(acc_schema.qnodes))
-        rows_new = rows_new[:, perm]
-        rows_old = np.where(
-            rows_new < self.pg.n_total,
-            self.pg.new_to_old[np.minimum(rows_new, self.pg.n_total - 1)],
-            -1,
-        )
-        return rows_old.astype(np.int64)
+        return to_old_ids(self.pg, rows_new[:, perm])
 
     def _match_once(
         self,
@@ -271,14 +291,9 @@ class SubgraphMatcher:
         # ---- join phase ----------------------------------------------------
         with stage(stats, "join"):
             order = join_lib.select_join_order(schemas, stats.stwig_rows)
-            acc, acc_schema = tables[order[0]], schemas[order[0]]
-            for idx in order[1:]:
-                fn, merged = self._join_fn(
-                    acc_schema, schemas[idx], plan.join_rows_cap,
-                    plan.join_dup_cap,
-                    int(acc.cols.shape[0]), int(tables[idx].cols.shape[0]),
-                )
-                acc, acc_schema = fn(acc, tables[idx])[0], merged
+            acc, acc_schema = self._join_chain(
+                tables[order[0]], schemas[order[0]], tables, schemas, order[1:], plan
+            )
             overflow |= bool(acc.overflow)
 
         # ---- materialize (original ids, query-node column order) ----------

@@ -47,13 +47,16 @@ class ShardGraph(NamedTuple):
     indptr_pad: torch.Tensor    # (cap+2,) int32, ghost row owns the pad tail
 
     @staticmethod
-    def from_partition(pg, shard: int, device) -> "ShardGraph":
-        """Shard ``shard`` of a `PartitionedGraph`, moved to ``device``."""
+    def from_partition(pg, shard: int, device, all_labels=None) -> "ShardGraph":
+        """Shard ``shard`` of a `PartitionedGraph`, moved to ``device``.
+        ``all_labels``: the global labels already on ``device``, to share
+        one copy among the shards of one partition."""
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
         indices = dev(pg.indices[shard])
-        all_labels = dev(pg.all_labels)
+        if all_labels is None:
+            all_labels = dev(pg.all_labels)
         edge_cap = int(pg.indices.shape[1])
         n_total = int(pg.all_labels.shape[0]) - 1
         return ShardGraph(

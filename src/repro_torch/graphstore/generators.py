@@ -3,6 +3,8 @@
 The paper evaluates on R-MAT graphs (§6.3, citing Chakrabarti et al. [8]) plus
 two real datasets (US Patents, WordNet). The real datasets are replaced by
 R-MAT graphs with matched node/edge/label counts, made from a seed.
+`ring_of_cliques` is the fixture whose range partition has a ring for its
+cluster graph: the case the sharded engine's ring fetch is built for.
 """
 from __future__ import annotations
 
@@ -57,4 +59,27 @@ def rmat(
     labels = assign_labels(n_nodes, n_labels, rng, zipf_s=zipf_s)
     return Graph.from_edges(
         n_nodes, src, dst, labels, n_labels, symmetrize=symmetrize
+    )
+
+
+def ring_of_cliques(
+    n_cliques: int, clique_size: int, n_labels: int, *, seed: int = 0
+) -> Graph:
+    """Cliques joined in a ring — a high-locality graph. When partitioned by
+    node ranges, its cluster graph (§5.3) is a ring, so load sets are small:
+    the fixture used to exercise Theorems 3-5 in a non-degenerate way."""
+    rng = np.random.default_rng(seed)
+    n_nodes = n_cliques * clique_size
+    srcs, dsts = [], []
+    iu, ju = np.triu_indices(clique_size, k=1)
+    for c in range(n_cliques):
+        off = c * clique_size
+        srcs.append(iu + off)
+        dsts.append(ju + off)
+        # one bridge edge to the next clique
+        srcs.append(np.array([off + clique_size - 1]))
+        dsts.append(np.array([(off + clique_size) % n_nodes]))
+    labels = assign_labels(n_nodes, n_labels, rng)
+    return Graph.from_edges(
+        n_nodes, np.concatenate(srcs), np.concatenate(dsts), labels, n_labels
     )

@@ -19,7 +19,7 @@ Every prefill attention (`Transformer.forward`) goes through
 updated in place (the JAX package returns a new one): the returned
 `DecodeCache` holds the same tensors.
 
-Not ported yet (ROADMAP Queue 1, item 10): MoE and MLA layers, the MTP head,
+Not ported yet: the MoE and MLA LM families (their layers and the MTP head)
 and training (``loss_fn``); a config with ``moe`` or ``mla`` raises.
 """
 from __future__ import annotations
@@ -44,8 +44,8 @@ from repro_torch.models.schema import DTYPES, attach, load_jax_params
 def _dense_only(cfg: LMConfig) -> None:
     if cfg.moe is not None or cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA/MQA LMs only; MoE and MLA layers are "
-            "ROADMAP Queue 1, item 10")
+            f"{cfg.name}: the port serves dense GQA/MQA LMs only; the MoE and MLA LM "
+            "families are not ported yet")
 
 
 # ------------------------------------------------------------------ schema

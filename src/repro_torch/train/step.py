@@ -1,7 +1,7 @@
 """Family-specific serving entry points, as the JAX package's
 ``train/step.make_serve_fns``. The port serves the dense LM, GNN and recsys
-families; training steps, and the MoE/MLA LMs, are later slices (ROADMAP
-Queue 1, item 10)."""
+families; training steps, and the MoE and MLA LM families, are not ported
+yet."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -35,7 +35,7 @@ def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
     if not isinstance(cfg, (LMConfig, GNNConfig, RecSysConfig)):
         raise NotImplementedError(
             f"{type(cfg).__name__}: the port serves the dense LM, GNN and recsys families; "
-            "the MoE/MLA LM family and training are ROADMAP Queue 1, item 10")
+            "the MoE and MLA variants of the LM family, and training, are not ported yet")
     if model.cfg != cfg:
         raise ValueError(f"the model was built for {model.cfg.name!r}, not {cfg.name!r}")
 

@@ -366,6 +366,50 @@ def test_session_rows_equal_on_cpu_and_card(dev):
         assert len(pa) == len(pb) and all(np.array_equal(x, y) for x, y in zip(pa, pb))
 
 
+@pytest.mark.parametrize("graph,S,mode,use_ring", [
+    (("rmat", 1500, 6000, 12, 3), 4, "hash", False),
+    (("ring_of_cliques", 60, 6, 4, 2), 8, "range", True),
+], ids=["rmat-4-hash", "ring-8-range-ring"])
+def test_sharded_rows_equal_with_cuda_and_torch_kernels(dev, graph, S, mode, use_ring):
+    """The sharded engine on the card: its shards' global ids run through
+    the matcher's kernels, which must give the plain versions' bits."""
+    from repro_torch.api import GraphSession
+    from repro_torch.graphstore import generators
+    from repro_torch.graphstore.partition import PartitionedGraph
+    from repro_torch.workloads import dfs_query, path_query
+
+    kind, *args, seed = graph
+    g = getattr(generators, kind)(*args, seed=seed)
+    pg = PartitionedGraph.build(g, S, mode=mode)
+    s_cuda = GraphSession.open(pg, device=dev)
+    s_torch = GraphSession.open(pg, device=dev, kernels="torch")
+    assert (s_cuda.backend, s_cuda.kernels.name) == ("sharded", "cuda")
+    rng = np.random.default_rng(1)
+    if use_ring:  # the range-partitioned ring takes the ring fetch
+        q = None
+        while q is None:
+            q = path_query(g, rng, 4)
+        plan = s_cuda.compile(q).plan
+        assert s_cuda.engine.ring_radii_for(s_cuda.engine._load_masks(q, plan)[0]) is not None
+    n = 0
+    cuda.reset_launch_counts()
+    while n < 4:
+        q = dfs_query(g, rng, 4) if n < 3 else path_query(g, rng, 4)
+        if q is None:
+            continue
+        n += 1
+        a = s_torch.compile(q, max_matches=0).run(use_ring=use_ring)
+        b = s_cuda.compile(q, max_matches=0).run(use_ring=use_ring)
+        assert a.complete == b.complete and np.array_equal(a.rows, b.rows)
+        kw = dict(page_size=50, block_rows=64, engine_kw={"use_ring": use_ring})
+        pa = [p.rows for p in s_torch.stream(q, **kw)]
+        pb = [p.rows for p in s_cuda.stream(q, **kw)]
+        assert len(pa) == len(pb) and all(np.array_equal(x, y) for x, y in zip(pa, pb))
+    counts = cuda.launch_counts()
+    for op in ("stwig_expand", "bitset_build", "bitset_pack", "hash_join_probe"):
+        assert counts[op] > 0, op
+
+
 @pytest.mark.parametrize("E,d,n,hub", [(0, 4, 7, False), (1, 1, 3, False), (997, 1, 50, False),
                                        (5000, 70, 300, False), (200_000, 64, 4000, True),
                                        (168_960, 70, 169_984, False)])

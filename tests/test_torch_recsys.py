@@ -198,7 +198,7 @@ def test_device_none_means_the_card():
 
 def test_serve_fns_refuse_other_families():
     model = recsys.XDeepFM(xdeepfm.smoke(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="MLA variants of the LM family, and training, are not ported yet"):
         make_serve_fns(object(), model)
     with pytest.raises(ValueError, match="built for"):
         make_serve_fns(NARROW, model)
