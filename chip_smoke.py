@@ -1198,7 +1198,8 @@ def phase_sharded(g, edge_keys, queries, local_full) -> None:
     from repro_torch.graphstore.partition import PartitionedGraph
     from repro_torch.kernels import cuda
 
-    S = -(-g.n_nodes // stwig.CONFIG.nodes_per_shard)
+    per_shard = stwig.CONFIG.n_nodes // stwig.CONFIG.n_shards
+    S = -(-g.n_nodes // per_shard)
     t0 = time.perf_counter()
     pg = PartitionedGraph.build(g, S)
     t_part = time.perf_counter() - t0
@@ -1210,7 +1211,7 @@ def phase_sharded(g, edge_keys, queries, local_full) -> None:
         fail(f"GraphSession.open(pg, backend='sharded') on the card chose "
              f"{session.kernels.name!r}")
     eng = session.engine
-    log(f"[sharded] {S} hash shards (the paper's {stwig.CONFIG.nodes_per_shard} nodes a shard): "
+    log(f"[sharded] {S} hash shards (the paper's {per_shard} nodes a shard): "
         f"cap {pg.cap} nodes, edge_cap {pg.edge_cap} edges a shard, partition "
         f"{pg.memory_bytes() / 1e6:.1f} MB, built in {t_part:.2f} s; session (cluster-graph "
         f"index of {len(eng.cgi.pair_index)} label pairs, shards to the card) opened in "

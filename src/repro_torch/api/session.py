@@ -7,7 +7,6 @@ query compiled in it.
 from __future__ import annotations
 
 from repro_torch.api.compiled import CompiledQuery
-from repro_torch.configs import stwig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
 from repro_torch.core.cache import ExecutableCache
 from repro_torch.core.deprecation import facade_construction
@@ -53,9 +52,8 @@ class GraphSession:
         one shard, or for a raw `Graph` with ``n_shards > 1``, else
         ``"local"``. A raw `Graph` is partitioned here (``partition_mode``
         ``"hash"`` or ``"range"``): into 1 shard for the local backend, into
-        ``n_shards`` for the sharded one, by default as many as keep the
-        paper's 250,000 nodes a shard (`repro_torch.configs.stwig`). The
-        local backend refuses a partition of more than one shard.
+        ``n_shards`` for the sharded one, which needs it for a raw `Graph`.
+        The local backend refuses a partition of more than one shard.
 
         The sharded backend runs every shard on the one device, stacked
         (`repro_torch.core.dist`), so unlike the JAX package it does not
@@ -83,10 +81,12 @@ class GraphSession:
         else:
             if backend == "local":
                 shards = 1
-            else:
-                shards = n_shards or max(
-                    1, -(-graph_or_pg.n_nodes // stwig.CONFIG.nodes_per_shard)
+            elif n_shards is None:
+                raise ValueError(
+                    "the sharded backend needs n_shards= to partition a raw Graph"
                 )
+            else:
+                shards = n_shards
             pg = PartitionedGraph.build(graph_or_pg, shards, mode=partition_mode)
         cache = ExecutableCache(maxsize=cache_size)
         with facade_construction():

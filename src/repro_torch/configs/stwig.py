@@ -3,8 +3,9 @@ JAX package's ``configs/stwig.py`` (the port's configs have no registry).
 
 `CONFIG` is the paper's default run (§6.3): 64,000,000 nodes over 256
 shards, 250,000 nodes a shard. The sharded engine
-(`repro_torch.core.dist`) keeps that shard size on one card by stacking the
-shards: a graph of N nodes takes about ``N / 250,000`` shards."""
+(`repro_torch.core.dist`) stacks every shard on one card, so a caller keeps
+that shard size by cutting a graph of N nodes into about ``N / 250,000``
+shards."""
 import dataclasses
 
 
@@ -19,10 +20,6 @@ class STwigConfig:
     query_nodes: int = 10              # §6.1 defaults
     query_edges: int = 20
     max_matches: int = 1024            # pipeline termination
-
-    @property
-    def nodes_per_shard(self) -> int:
-        return self.n_nodes // self.n_shards
 
 
 CONFIG = STwigConfig()

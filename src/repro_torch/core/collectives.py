@@ -6,9 +6,9 @@ device of a mesh axis and moves data between them with ``ppermute`` and
 tensor whose dim 0 is the shard, so each collective becomes an operation
 over that dimension:
 
-  * `or_allreduce` — the bitwise OR of every shard's packed words: a
-    halving butterfly over dim 0 (``log2(S)`` ORs of half the stack each)
-    where S is a power of two, a loop over the shards otherwise;
+  * `or_allreduce` — the bitwise OR of every shard's packed words, by
+    halving dim 0 (``ceil(log2(S))`` ORs of half the stack each; an odd
+    shard out is carried to the next step);
   * `gather_load_set` — the faithful load-set fetch (Theorem 4). An
     all-gather leaves every shard holding the same rows, so on one card the
     fetched columns are ONE shared ``(S·cap, w)`` view of the stack,
@@ -28,16 +28,10 @@ import torch
 
 def or_allreduce(words: torch.Tensor) -> torch.Tensor:
     """``words (S, …)`` → the OR over the shards, shaped ``words[0]``."""
-    n = words.shape[0]
-    if n & (n - 1) == 0:
-        while words.shape[0] > 1:
-            half = words.shape[0] // 2
-            words = words[:half] | words[half:]
-        return words[0]
-    out = words[0]
-    for i in range(1, n):
-        out = out | words[i]
-    return out
+    while words.shape[0] > 1:
+        h = words.shape[0] // 2
+        words = torch.cat([words[:h] | words[h : 2 * h], words[2 * h :]])
+    return words[0]
 
 
 def pmax(x: torch.Tensor) -> torch.Tensor:

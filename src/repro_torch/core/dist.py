@@ -45,7 +45,7 @@ from repro_torch.core.backend import Kernels, resolve_kernels
 from repro_torch.core.cache import ExecutableCache
 from repro_torch.core.collectives import fetch_load_set, or_allreduce, pmax
 from repro_torch.core.deprecation import warn_direct_construction
-from repro_torch.core.engine import CachedSteps, to_old_ids
+from repro_torch.core.engine import CachedSteps
 from repro_torch.core.match import Bindings, ShardGraph, apply_binding_update
 from repro_torch.core.plan import QueryPlan
 from repro_torch.core.query import QueryGraph
@@ -85,7 +85,6 @@ class DistributedMatcher(CachedSteps):
         device,
         cache: ExecutableCache | None = None,
         kernels: "str | Kernels | None" = None,
-        cgi: ClusterGraphIndex | None = None,
     ):
         warn_direct_construction("DistributedMatcher")
         self.pg = pg
@@ -94,7 +93,7 @@ class DistributedMatcher(CachedSteps):
         # the kernel backend every per-shard step draws from; reassignable —
         # cached steps are keyed by (static spec, kernels.name)
         self.kernels = resolve_kernels(kernels, self.device)
-        self.cgi = cgi if cgi is not None else ClusterGraphIndex.build(pg)
+        self.cgi = ClusterGraphIndex.build(pg)
         # cumulative block joins run on the streaming path (one a block, for
         # every shard); lets callers assert early-stopped streams skip work
         self.join_block_calls = 0
@@ -216,16 +215,11 @@ class DistributedMatcher(CachedSteps):
     def _union_rows(self, cols, valid, schema, max_matches: int) -> np.ndarray:
         """The disjoint per-shard results ``cols (S, cap, w)``, ``valid (S,
         cap)`` → host rows of ORIGINAL ids in query-node column order,
-        shard-major. Truncated to ``max_matches`` before the columns are
-        permuted and the ids mapped, as the reference does."""
+        shard-major (`CachedSteps._materialize` of the flattened stack)."""
         S, cap, w = cols.shape
-        keep = np.nonzero(self.kernels.mask_to_host(valid.reshape(S * cap)))[0]
-        if max_matches and keep.shape[0] > max_matches:
-            keep = keep[:max_matches]
-        flat = cols.reshape(S * cap, w)
-        rows_new = flat[torch.as_tensor(keep, device=flat.device)].cpu().numpy()
-        perm = np.argsort(np.asarray(schema.qnodes))
-        return to_old_ids(self.pg, rows_new[:, perm])
+        return self._materialize(
+            cols.reshape(S * cap, w), valid.reshape(S * cap), schema, max_matches
+        )
 
     def _match_once(
         self,

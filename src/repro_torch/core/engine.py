@@ -42,7 +42,7 @@ from repro_torch.core.result import MatchResult, MatchStats
 from repro_torch.graphstore.partition import PartitionedGraph
 from repro_torch.runtime.resilience import stage
 
-__all__ = ["CachedSteps", "SubgraphMatcher", "to_old_ids"]
+__all__ = ["CachedSteps", "SubgraphMatcher"]
 
 
 def _concat_tables(tables: list[STwigTable]) -> join_lib.JoinTable:
@@ -72,17 +72,6 @@ class _LocalStreamState:
     explore_overflow: bool
     cap: int  # row capacity of the blocked table (the block loop bound)
     valid_host: np.ndarray  # (cap,) host bool mask of the blocked table
-
-
-def to_old_ids(pg: PartitionedGraph, rows_new: np.ndarray) -> np.ndarray:
-    """Host rows of new (shard-block) ids → ORIGINAL ids, int64; the ghost
-    id ``n_total`` maps to -1."""
-    rows_old = np.where(
-        rows_new < pg.n_total,
-        pg.new_to_old[np.minimum(rows_new, pg.n_total - 1)],
-        -1,
-    )
-    return rows_old.astype(np.int64)
 
 
 class CachedSteps:
@@ -143,6 +132,28 @@ class CachedSteps:
             )
             acc, acc_schema = fn(acc, tables[idx])[0], merged
         return acc, acc_schema
+
+    def _materialize(
+        self, cols: torch.Tensor, valid: torch.Tensor, schema: join_lib.Schema,
+        max_matches: int,
+    ) -> np.ndarray:
+        """Device rows ``cols (n, w)``, ``valid (n,)`` → host rows of ORIGINAL
+        ids in query-node order. The validity mask crosses as packed words;
+        then only the rows kept are gathered on the device and copied.
+        Truncated to ``max_matches`` before the columns are permuted and the
+        ids mapped; the ghost id ``n_total`` maps to -1."""
+        keep = np.nonzero(self.kernels.mask_to_host(valid))[0]
+        if max_matches and keep.shape[0] > max_matches:
+            keep = keep[:max_matches]
+        rows_new = cols[torch.as_tensor(keep, device=cols.device)].cpu().numpy()
+        perm = np.argsort(np.asarray(schema.qnodes))
+        rows_new = rows_new[:, perm]
+        rows_old = np.where(
+            rows_new < self.pg.n_total,
+            self.pg.new_to_old[np.minimum(rows_new, self.pg.n_total - 1)],
+            -1,
+        )
+        return rows_old.astype(np.int64)
 
 
 class SubgraphMatcher(CachedSteps):
@@ -221,7 +232,7 @@ class SubgraphMatcher(CachedSteps):
                 state.order[1:], state.plan,
             )
         with stage(state.stats, "materialize"):
-            rows = self._materialize(acc, acc_schema, max_matches=0)
+            rows = self._materialize(acc.cols, acc.valid, acc_schema, max_matches=0)
         return rows, bool(acc.overflow)
 
     # ------------------------------------------------------ execution phases
@@ -262,19 +273,6 @@ class SubgraphMatcher(CachedSteps):
             overflow |= bool(jt.overflow)
         return tables, schemas, overflow
 
-    def _materialize(
-        self, acc: join_lib.JoinTable, acc_schema: join_lib.Schema, max_matches: int
-    ) -> np.ndarray:
-        """Device join table → host rows of ORIGINAL ids in query-node order.
-        The validity mask crosses as packed words; then only the rows kept
-        are gathered on the device and copied."""
-        keep = np.nonzero(self.kernels.mask_to_host(acc.valid))[0]
-        if max_matches and keep.shape[0] > max_matches:
-            keep = keep[:max_matches]
-        rows_new = acc.cols[torch.as_tensor(keep, device=acc.cols.device)].cpu().numpy()
-        perm = np.argsort(np.asarray(acc_schema.qnodes))
-        return to_old_ids(self.pg, rows_new[:, perm])
-
     def _match_once(
         self,
         query: QueryGraph,
@@ -298,7 +296,7 @@ class SubgraphMatcher(CachedSteps):
 
         # ---- materialize (original ids, query-node column order) ----------
         with stage(stats, "materialize"):
-            rows_old = self._materialize(acc, acc_schema, plan.max_matches)
+            rows_old = self._materialize(acc.cols, acc.valid, acc_schema, plan.max_matches)
         stats.join_order = [tuple(schemas[i].qnodes) for i in order]
         stats.time_s = time.perf_counter() - t0
         stats.n_join_rows = int(acc.n_rows)

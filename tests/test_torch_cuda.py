@@ -731,7 +731,9 @@ def test_lm_on_card_matches_the_cpu(dev):
             r: cfg.n_layers if r == "tf32" else 0 for r in fa.ROUTES}
         want, c_cpu = f_cpu["prefill"](tokens)
         scale = want.abs().amax(dim=-1, keepdim=True)
-        assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), cfg.name
+        assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), (
+            f"{cfg.name}: worst |card - cpu| / max|cpu| of its row "
+            f"{((got.cpu() - want).abs() / scale).max().item()}")
         tok = want[:, -1:].argmax(-1)
         # the cache has no free slot past the prompt: decode the last position again
         got, _ = f_gpu["decode"](c_gpu, tok, 129)

@@ -146,7 +146,7 @@ def jax_vmap(f, *args):
     return jax.vmap(f, axis_name="data")(*[jnp.asarray(a) for a in args])
 
 
-@pytest.mark.parametrize("S", [1, 4, 6, 8])
+@pytest.mark.parametrize("S", [1, 4, 5, 6, 8])
 def test_or_allreduce_equals_reference(S):
     rng = np.random.default_rng(S)
     words = rng.integers(-(2**31), 2**31, (S, 3, 37), dtype=np.int64).astype(np.int32)
@@ -357,9 +357,12 @@ def test_session_routing(monkeypatch):
     s = GraphSession.open(g, device="cpu", n_shards=3, partition_mode="range")
     assert (s.backend, s.pg.n_shards) == ("sharded", 3)
     assert GraphSession.open(g, device="cpu").backend == "local"
-    # a raw graph on the sharded backend keeps the paper's shard size
-    assert stwig.CONFIG.nodes_per_shard == 250_000 and stwig.smoke().n_shards == 4
-    assert GraphSession.open(g, backend="sharded", device="cpu").pg.n_shards == 1
+    # a raw graph on the sharded backend needs its shard count
+    with pytest.raises(ValueError, match="needs n_shards="):
+        GraphSession.open(g, backend="sharded", device="cpu")
+    assert GraphSession.open(g, backend="sharded", device="cpu", n_shards=1).pg.n_shards == 1
+    assert stwig.CONFIG.n_nodes // stwig.CONFIG.n_shards == 250_000
+    assert stwig.smoke().n_shards == 4
     with pytest.raises(ValueError, match="backend must be one of"):
         GraphSession.open(pg, backend="mesh", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
