@@ -179,6 +179,34 @@ result lines are printed only when every phase passed):
      route's row on that same call (its launches those of its own shapes),
      its bound at the fp32 CUDA-core rate; both with fp32 SDPA as
      ``library_ms``, and both also timed by a CUDA graph (5 and 3 calls).
+ 12. moe-mla — the MoE and MLA LM families served through
+     ``make_serve_fns(cfg, model)`` at their published widths, bf16,
+     random weights from a generator seeded 0, each cut in depth only
+     (`MOE_MLA_SERVE`): deepseek-v3-671b at 5 of its 61 layers (its 3
+     dense layers and 2 MoE layers, all 256 experts; MLA, 128 heads),
+     ``"prefill"`` of 2 × 2,048 ``lm_batch`` tokens; mixtral-8x22b at 4 of
+     its 56 layers (8 experts top-2, GQA 48 on 8, window 4,096), 1 × 8,192
+     tokens, twice its window; then 16 greedy ``"decode"`` steps each into
+     a cache grown from the prefill's. The counts are zeroed before and
+     read after each: ``flash_attention_tc`` once a layer a prefill (5, 4),
+     the other routes 0, and all three 0 in decode. Held: each prefill
+     attention again through the tensor-core route against
+     ``mha_reference`` (a chunk of kv heads at a time, `plain_attention`)
+     within ``2e-2 ·`` each output row's max|plain|; N(0,1) inputs at MLA's
+     attention shape (2 × 2,048, 128 heads on 128, q/k head dim 192, v 128)
+     through ``routed``: bf16 on the tensor-core route within 2e-2, fp32 on
+     the split-TF32 route within 2e-5; finite logits of the right shape
+     and dtype, the caches' shapes after the prefill and after decode
+     (MLA: ``c_kv (5, 2, 2048, 512)``, ``k_rope (5, 2, 2048, 64)``, then
+     2,064 slots); the two smoke configs (fp32, TF32 off) give the same
+     prefill and decode logits on card and CPU within ``1e-4 ·`` each
+     row's max|cpu|. Printed, not held: prefill ms and tokens/s, decode-step
+     ms, device time by kernel, peak memory; each MoE layer's share of
+     assignments dropped at capacity factor 1.25 and its least and most
+     loaded expert; the MLA-shape kernel's time beside its bound (and the
+     operations the tensor-core route executes with head dims padded to
+     256) and SDPA's; the bf16 decode logits against a teacher-forced
+     prefill's at the same position.
 
 Before the last line it prints the fourteen kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -213,6 +241,13 @@ PRODUCTS = dict(n_nodes=2_449_029, n_edges=61_859_140 // 2, n_labels=47, seed=0)
 # gemma-2b served at a cut of prefill_32k (32,768 tokens × batch 32): 2 prompts of
 # 8,192 tokens, then 32 greedy decode steps into a cache of 8,224 slots
 LM_SERVE = dict(batch=2, seq=8192, decode=32)
+# deepseek-v3 (61 layers, 1,342.5 GB in bf16) and mixtral-8x22b (56 layers, 281.3 GB)
+# served at their published widths, cut in depth only: deepseek's 3 dense layers
+# and 2 MoE layers (all 256 experts; 53.4 GB), 2 prompts of 2,048 tokens;
+# mixtral's first 4 layers (20.8 GB), 1 prompt of 8,192 tokens (twice its
+# 4,096-token window); 16 greedy decode steps each
+MOE_MLA_SERVE = {"deepseek-v3-671b": dict(n_layers=5, batch=2, seq=2048, decode=16),
+                 "mixtral-8x22b": dict(n_layers=4, batch=1, seq=8192, decode=16)}
 # [small]'s 4 shards on the CPU: every shard probes the fetched tables of all
 # four, so the tables are kept small there (on the card too, for the same rows)
 SMALL_SHARDED_CAPS = dict(emission_budget=1 << 12, join_rows_cap=1 << 14)
@@ -1956,16 +1991,45 @@ def logits_diff(a: torch.Tensor, b: torch.Tensor, chunk: int = 1024) -> tuple[fl
     return ratio, err
 
 
-def greedy(fns, logits, cache, cfg, dev, n: int):
-    """``n`` greedy decode steps after a prefill, the cache grown from the
-    prefill's as ``src/repro/launch/serve.py`` ``serve_lm`` does: the
-    tokens ``(B, n + 1)``, the grown cache and the last step's logits."""
+def moved_by_route() -> dict:
+    """``flash_attention``'s launch counts by route."""
+    from repro_torch.extras.flash_attention import flash_attention as fa
+    from repro_torch.kernels import cuda
+
+    counts = cuda.launch_counts()
+    return {r: counts[k.symbol] for r, k in fa.ROUTES.items()}
+
+
+def routed(fn, want: str, what: str):
+    """``fn()``, failing unless it launched ``flash_attention``'s route
+    ``want`` once and the other routes not at all."""
+    before = moved_by_route()
+    out = fn()
+    after = moved_by_route()
+    moved = {r: after[r] - before[r] for r in after}
+    if moved != {r: int(r == want) for r in after}:
+        fail(f"{what}: route launches {moved}, expected one {want!r}")
+    return out
+
+
+def grown_cache(cfg, cache, n: int, dev):
+    """A prefill's cache grown by ``n`` slots, as ``src/repro/launch/
+    serve.py`` ``serve_lm`` grows it."""
     from repro_torch.models.transformer import init_cache
 
-    B, S = logits.shape[:2]
+    B, S = cache.data[0].shape[1:3]
     grown = init_cache(cfg, B, S + n, device=dev)
     for z, c in zip(grown.data, cache.data):
         z[:, :, :S] = c
+    return grown
+
+
+def greedy(fns, logits, cache, cfg, dev, n: int):
+    """``n`` greedy decode steps after a prefill, into its cache grown by
+    ``n`` slots (`grown_cache`): the tokens ``(B, n + 1)``, the grown cache
+    and the last step's logits."""
+    S = logits.shape[1]
+    grown = grown_cache(cfg, cache, n, dev)
     tok = logits[:, -1:].argmax(-1)
     out = [tok]
     for i in range(n):
@@ -1986,21 +2050,6 @@ def phase_lm(dev) -> list[dict]:
     from repro_torch.kernels import cuda
     from repro_torch.models.transformer import Transformer
     from repro_torch.train.step import make_serve_fns
-
-    def moved_by_route() -> dict:
-        counts = cuda.launch_counts()
-        return {r: counts[k.symbol] for r, k in fa.ROUTES.items()}
-
-    def routed(fn, want: str, what: str):
-        """``fn()``, failing unless it launched route ``want`` once and the
-        other routes not at all."""
-        before = cuda.launch_counts()
-        out = fn()
-        after = cuda.launch_counts()
-        moved = {r: after[k.symbol] - before[k.symbol] for r, k in fa.ROUTES.items()}
-        if moved != {r: int(r == want) for r in fa.ROUTES}:
-            fail(f"{what}: route launches {moved}, expected one {want!r}")
-        return out
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2298,6 +2347,254 @@ def phase_lm(dev) -> list[dict]:
     return [row, tf32_row, fma_row]
 
 
+# ------------------------------------------------------------ [moe-mla]
+def plain_attention(q, k, v, **kw) -> torch.Tensor:
+    """``mha_reference`` a chunk of kv heads at a time (its float32 logits
+    ``(B, heads, G, S, S)`` kept near 1 GB a chunk): the same function, in
+    the memory a full-width MoE model leaves."""
+    from repro_torch.extras.flash_attention.ref import mha_reference
+
+    B, S, Nq, _ = q.shape
+    Nkv = k.shape[2]
+    G = Nq // Nkv
+    hc = max(1, (1 << 30) // (4 * B * G * S * S))
+    return torch.cat([mha_reference(q[:, :, h * G:(h + hc) * G], k[:, :, h:h + hc],
+                                    v[:, :, h:h + hc], **kw)
+                      for h in range(0, Nkv, hc)], dim=2)
+
+
+def moe_inputs(model, tokens) -> list:
+    """``(layer, the normed stream its MoE FFN gets (T, D))`` for each MoE
+    layer of one prefill, read by wrapping the model's ``ffn``."""
+    first = model.cfg.moe.first_k_dense
+    seen = []
+    ffn = model.ffn
+
+    def record(l, h):
+        if l >= first:
+            seen.append((l, h.reshape(-1, h.shape[-1])))
+        return ffn(l, h)
+
+    model.ffn = record
+    try:
+        with torch.inference_mode():
+            model(tokens)
+    finally:
+        del model.ffn
+    return seen
+
+
+def routing_stats(model, l: int, h: torch.Tensor) -> str:
+    """Layer ``l``'s routing of ``h``: the share of (token, expert)
+    assignments dropped at its capacity, and the least and most tokens an
+    expert was given."""
+    from repro_torch.models import moe
+
+    cfg = model.cfg.moe
+    p = {name: w[l - cfg.first_k_dense] for name, w in model.moe.items()}
+    idx = moe.route(h, p["router"], p.get("router_bias"), cfg)[0]
+    C = moe.capacity(h.shape[0], cfg)
+    kept = moe.assignment_slots(idx[None], cfg.n_experts, C) < cfg.n_experts * C
+    load = torch.bincount(idx.reshape(-1).long(), minlength=cfg.n_experts)
+    return (f"layer {l}: C {C}, dropped {1 - kept.float().mean().item():.4f} of "
+            f"{idx.numel()} assignments, expert load min {load.min().item()} max "
+            f"{load.max().item()}")
+
+
+def phase_moe_mla(dev) -> None:
+    import dataclasses
+
+    from repro_torch.configs import deepseek_v3_671b, mixtral_8x22b
+    from repro_torch.core.backend import get_kernels
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.extras.flash_attention import flash_attention as fa
+    from repro_torch.kernels import cuda
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.step import make_serve_fns
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_k = get_kernels("cuda")
+
+    # ---- the smoke configs: the same logits on the card and on the CPU -----
+    # (fp32, TF32 off; the decode steps take the CPU's greedy tokens on both)
+    smoke_errs = {}
+    for small in (mixtral_8x22b.smoke(), deepseek_v3_671b.smoke()):
+        m_gpu = Transformer(small, device=dev)
+        m_cpu = Transformer(small, device="cpu")
+        m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+        f_gpu, f_cpu = make_serve_fns(small, m_gpu), make_serve_fns(small, m_cpu)
+        toks = lm_batch(small, 2, 200, seed=0, step=0)["tokens"]
+        want, c_cpu = f_cpu["prefill"](toks)
+        got, c_gpu = f_gpu["prefill"](toks)
+        ratios = [scaled_err(got.cpu(), want, own_row_scale(want),
+                             f"{small.name} prefill logits, card vs CPU")[0]]
+        g_cpu, g_gpu = grown_cache(small, c_cpu, 4, "cpu"), grown_cache(small, c_gpu, 4, dev)
+        tok = want[:, -1:].argmax(-1)
+        for i in range(4):
+            want, _ = f_cpu["decode"](g_cpu, tok, 200 + i)
+            got, _ = f_gpu["decode"](g_gpu, tok, 200 + i)
+            ratios.append(scaled_err(got.cpu(), want, own_row_scale(want),
+                                     f"{small.name} decode step {i} logits, card vs CPU")[0])
+            tok = want.argmax(-1)
+        smoke_errs[small.name] = ratios
+    log(f"[moe-mla] smoke configs (fp32, 2 x 200 tokens, then 4 decode steps): logits within 1e-4 "
+        f"of each row's max|cpu| on card and CPU (largest ratio, prefill then each step: "
+        f"{ {k: [f'{r:.2e}' for r in v] for k, v in smoke_errs.items()} })")
+
+    # ---- N(0,1) inputs at MLA's attention shape ------------------------------
+    m = deepseek_v3_671b.CONFIG.mla
+    N, H, Hv = deepseek_v3_671b.CONFIG.n_heads, m.d_nope + m.d_rope, m.d_v
+    kw = dict(scale=1.0 / np.sqrt(H))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for dt, tol, rt in ((torch.bfloat16, 2e-2, "tc"), (torch.float32, 2e-5, "tf32")):
+        q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dt)
+                   for sh in ((2, 2048, N, H), (2, 2048, N, H), (2, 2048, N, Hv)))
+        got = routed(lambda: cuda_k.flash_attention(q, k, v, **kw), rt, f"MLA shape {dt}")
+        want = plain_attention(q, k, v, **kw).float()
+        ratio, err = scaled_err(got.float(), want, own_row_scale(want),
+                                f"MLA shape, N(0,1), {dt}", tol=tol)
+        del got, want
+        ms = time_ms(lambda: cuda_k.flash_attention(q, k, v, **kw), reps=5)
+        b, ops = work("flash_attention_tc", (q, k, v), kw)
+        rate = BF16_OPS_PER_S if rt == "tc" else TF32_OPS_PER_S
+        bound = max(b / HBM_BYTES_PER_S, ops / rate) * 1e3
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, **kw), reps=5)
+        del qt, kt, vt, q, k, v
+        # the tensor-core route pads head dims to HD = 256 when max(H, Hv) is
+        # 192: Q·Kᵀ stops at H, P·V runs over all HD columns
+        pairs = ops / (2.0 * H + 2.0 * Hv)
+        padded = (f", {pairs * 2.0 * (H + 256):.4g} executed at HD 256 (P·V over 256 columns)"
+                  if rt == "tc" else "")
+        log(f"[moe-mla] MLA shape N(0,1) {str(dt).removeprefix('torch.')} q (2, 2048, {N}, {H}) "
+            f"v (…, {Hv}), {rt} route: within {tol:g} of each row's max|plain| (largest ratio "
+            f"{ratio:.3e}, |kernel - plain| {err:.3e}); kernel {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({ops:.4g} operations needed at the {'bf16' if rt == 'tc' else 'TF32'} tensor rate, "
+            f"{b / 1e6:.1f} MB{padded}); {ops / ms / 1e9:.2f} TFLOP/s needed; SDPA "
+            f"{lib_ms:.4f} ms")
+
+    # ---- each model at its published widths, cut in depth ------------------
+    for mod in (deepseek_v3_671b, mixtral_8x22b):
+        cut = MOE_MLA_SERVE[mod.CONFIG.name]
+        cfg = dataclasses.replace(mod.CONFIG, n_layers=cut["n_layers"])
+        B, S, T = cut["batch"], cut["seq"], cut["decode"]
+        t0 = time.perf_counter()
+        model = Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        if model.kernels.name != "cuda":
+            fail(f"Transformer on the card chose kernels {model.kernels.name!r}")
+        fns = make_serve_fns(cfg, model)
+        tokens = torch.from_numpy(lm_batch(cfg, B, S, seed=0, step=0)["tokens"]).to(dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        n_bytes = sum(nbytes(p) for p in model.parameters())
+        tag = f"[moe-mla] {cfg.name}"
+        log(f"{tag}: {cfg.n_layers} of its {mod.CONFIG.n_layers} layers (depth cut only: "
+            f"d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.moe.n_experts} experts top-"
+            f"{cfg.moe.top_k}, first_k_dense {cfg.moe.first_k_dense}, "
+            f"{'MLA' if cfg.mla else f'GQA {cfg.n_heads} on {cfg.n_kv_heads}'}, vocab "
+            f"{cfg.vocab_size}, {cfg.dtype}): {n_params} parameters ({n_bytes / 1e9:.3f} GB) "
+            f"made on the card from seed 0 in {time.perf_counter() - t0:.2f} s; lm_batch "
+            f"tokens {tuple(tokens.shape)}")
+
+        # ---- the path: prefill, then greedy decode; counted -----------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        logits, cache = fns["prefill"](tokens)
+        torch.cuda.synchronize()
+        prefill_routes = moved_by_route()
+        cuda.reset_launch_counts()
+        out_k, grown, step_logits = greedy(fns, logits, cache, cfg, dev, T)
+        torch.cuda.synchronize()
+        n_decode = sum(moved_by_route().values())
+        peak = torch.cuda.max_memory_allocated()
+        if prefill_routes != {r: cfg.n_layers if r == "tc" else 0 for r in fa.ROUTES}:
+            fail(f"{cfg.name}: a bf16 prefill of {cfg.n_layers} layers launched the routes "
+                 f"{prefill_routes} (expected the tensor-core route {cfg.n_layers} times, the "
+                 f"others 0)")
+        if n_decode != 0:
+            fail(f"{cfg.name}: flash_attention launched {n_decode} times in {T} decode steps")
+        if logits.shape != (B, S, cfg.vocab_size) or logits.dtype != torch.bfloat16:
+            fail(f"{cfg.name}: prefill logits {tuple(logits.shape)} {logits.dtype}")
+        if step_logits.shape != (B, 1, cfg.vocab_size) or out_k.shape != (B, T + 1):
+            fail(f"{cfg.name}: decode logits {tuple(step_logits.shape)}, tokens "
+                 f"{tuple(out_k.shape)}")
+        if not all(bool(torch.isfinite(logits[:, s0:s0 + 1024]).all())
+                   for s0 in range(0, S, 1024)) or not torch.isfinite(step_logits).all():
+            fail(f"{cfg.name}: non-finite logits")
+        if cfg.mla is not None:
+            want_shapes = [(cfg.n_layers, B, S, cfg.mla.kv_lora_rank),
+                           (cfg.n_layers, B, S, cfg.mla.d_rope)]
+        else:
+            want_shapes = [(cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)] * 2
+        grown_shapes = [sh[:2] + (S + T,) + sh[3:] for sh in want_shapes]
+        if ([tuple(c.shape) for c in cache.data] != want_shapes
+                or [tuple(c.shape) for c in grown.data] != grown_shapes
+                or cache.s_cap != S or grown.s_cap != S + T):
+            fail(f"{cfg.name}: cache {[tuple(c.shape) for c in cache.data]} / "
+                 f"{[tuple(c.shape) for c in grown.data]}, not {want_shapes} / {grown_shapes}")
+        log(f"{tag} path run: prefill {B} x {S} -> logits {tuple(logits.shape)} bfloat16, "
+            f"{cache.kind} cache {want_shapes}; {T} greedy decode steps into {S + T} slots; "
+            f"flash_attention launches by route in the prefill {prefill_routes}, {n_decode} in "
+            f"decode; max_memory_allocated {peak / 1e9:.3f} GB")
+
+        # ---- each prefill attention against the plain version; the routing --
+        rec = recording_flash_attention()
+        model.set_kernels(rec)
+        moe_in = moe_inputs(model, tokens)
+        model.set_kernels("cuda")
+        if len(rec.args) != cfg.n_layers:
+            fail(f"{cfg.name}: recorded {len(rec.args)} attention calls, not {cfg.n_layers}")
+        call_errs = []
+        for i, (q, k, v, kw) in enumerate(rec.args):
+            got = routed(lambda: cuda_k.flash_attention(q, k, v, **kw), "tc",
+                         f"{cfg.name} layer {i} attention")
+            want = plain_attention(q, k, v, **kw)
+            call_errs.append(scaled_err(got.float(), want.float(), own_row_scale(want.float()),
+                                        f"{cfg.name} layer {i} prefill attention (bf16)",
+                                        tol=2e-2))
+            del got, want
+        q, k, v, kw = rec.args[0]
+        log(f"{tag}: the {len(call_errs)} prefill attentions (q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, {kw}), each through the tensor-core route, "
+            f"within 2e-2 of each output row's max|plain|: largest ratio "
+            f"{max(r for r, _ in call_errs):.3e}, largest |kernel - plain| "
+            f"{max(e for _, e in call_errs):.3e}; served layer 0's attention "
+            f"{time_ms(lambda: cuda_k.flash_attention(q, k, v, **kw), reps=5):.4f} ms")
+        del rec, q, k, v
+        log(f"{tag} routing of the prefill's {B * S} tokens (not held), capacity factor "
+            f"{cfg.moe.capacity_factor}: " + "; ".join(routing_stats(model, l, h)
+                                                       for l, h in moe_in))
+        del moe_in
+
+        # ---- the served path: times, device time by kernel --------------------
+        prefill_ms = time_ms(lambda: fns["prefill"](tokens), reps=3)
+        last = out_k[:, T - 1:T]
+        decode_ms = time_ms(lambda: fns["decode"](grown, last, S + T - 1), reps=5)
+        log(f"{tag} prefill {B} x {S}: {prefill_ms:.4f} ms ({B * S / prefill_ms * 1e3:.0f} "
+            f"tokens/s); decode step (batch {B}, {S + T} slots): {decode_ms:.4f} ms; peak "
+            f"{peak / 1e9:.3f} GB")
+        log(f"{tag} prefill "
+            f"{profile_line(device_profile(lambda: fns['prefill'](tokens), reps=1))}")
+        log(f"{tag} decode step "
+            f"{profile_line(device_profile(lambda: fns['decode'](grown, last, S + T - 1)))}")
+
+        # ---- bf16 decode logits against a teacher-forced prefill (printed) ----
+        # The prefill of the prompt and the greedy tokens: its logits at the
+        # last decode step's position (the MoE capacity is the longer
+        # prompt's, and every sum runs in another order)
+        forced = fns["prefill"](torch.cat([tokens, out_k[:, :T]], dim=1))[0][:, -1:]
+        ratio, err = logits_diff(step_logits, forced)
+        agree = (step_logits.argmax(-1) == forced.argmax(-1)).float().mean().item()
+        log(f"{tag} bf16 decode logits at position {S + T - 1} vs a teacher-forced prefill of "
+            f"{S + T} tokens (not held): largest |diff| {err:.4g}, {ratio:.3e} of the row's max; "
+            f"argmax agrees {agree:.2f}")
+        del model, fns, logits, cache, grown, step_logits, forced, tokens
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     name, smi = phase_device()
@@ -2419,6 +2716,9 @@ def main() -> None:
 
     # ---- phase 11: gemma-2b prefill and decode at its published widths ------
     kernel_rows += phase_lm(dev)
+
+    # ---- phase 12: deepseek-v3 and mixtral-8x22b, published widths, cut depth
+    phase_moe_mla(dev)
     if sorted(r["name"] for r in kernel_rows) != sorted(KERNEL_INFO):
         fail(f"the kernel line has {[r['name'] for r in kernel_rows]}, not {list(KERNEL_INFO)}")
 

@@ -1,7 +1,6 @@
 """Config dataclasses, copied from the JAX package's ``configs/base.py``:
-only what a ported model path reads (the LM, GNN and recsys families).
-`MoEConfig` and `MLAConfig` are copied field for field so that an LM config
-is the JAX package's; the port's LM serves neither yet."""
+only what a ported model path reads (the LM, GNN and recsys families),
+field for field, so that a config is the JAX package's."""
 from __future__ import annotations
 
 import dataclasses

@@ -11,6 +11,9 @@ import torch
 from torch import nn
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# a leaf whose float32 draw would be larger is drawn a block of leading
+# indices at a time (gemma-2b's largest, 2.4 GB, is drawn whole)
+WHOLE_DRAW_BYTES = 4 << 30
 
 
 def init_param(shape, kind: str, generator: torch.Generator, device,
@@ -19,7 +22,11 @@ def init_param(shape, kind: str, generator: torch.Generator, device,
     and ``lecun`` are normals scaled by the fan-in (``shape[-2]``, or
     ``shape[-1]`` for a vector), ``embed`` a normal × 0.02, ``zeros`` and
     ``ones``. The normal is drawn and scaled in float32, then cast to
-    ``dtype``, as the JAX initialisers do."""
+    ``dtype``, as the JAX initialisers do. A leaf over `WHOLE_DRAW_BYTES`
+    in float32 (deepseek-v3's expert weights: 30 GB a leaf at two MoE
+    layers) is drawn in blocks of its leading indices, each block no larger
+    than that, straight into the output: the float32 transient stays one
+    block."""
     dt = DTYPES[dtype]
     if kind == "zeros":
         return torch.zeros(shape, dtype=dt, device=device)
@@ -27,8 +34,22 @@ def init_param(shape, kind: str, generator: torch.Generator, device,
         return torch.ones(shape, dtype=dt, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = {"he": math.sqrt(2.0 / fan_in), "lecun": math.sqrt(1.0 / fan_in), "embed": 0.02}[kind]
-    t = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return t.mul_(std).to(dt)
+    if 4 * math.prod(shape) <= WHOLE_DRAW_BYTES:
+        t = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return t.mul_(std).to(dt)
+    # the most trailing dims whose block fits, then as many such blocks a
+    # draw as fit
+    lead = next(i for i in range(1, len(shape) + 1)
+                if 4 * math.prod(shape[i:]) <= WHOLE_DRAW_BYTES)
+    block = shape[lead:]
+    out = torch.empty(shape, dtype=dt, device=device)
+    rows = out.view(-1, *block)
+    step = WHOLE_DRAW_BYTES // (4 * math.prod(block))
+    for i in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - i)
+        t = torch.randn((n, *block), generator=generator, dtype=torch.float32, device=device)
+        rows[i:i + n] = t.mul_(std)
+    return out
 
 
 def _is_leaf(v) -> bool:

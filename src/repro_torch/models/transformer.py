@@ -1,26 +1,43 @@
-"""Decoder-only LM on PyTorch, dense GQA/MQA: the port of
-``src/repro/models/transformer.py`` for serving (prefill and decode).
+"""Decoder-only LM on PyTorch: the port of ``src/repro/models/transformer.py``
+for serving (prefill and decode), for every LM family of the JAX package:
+
+  qwen2-72b / qwen1.5-110b  — GQA + QKV bias, SwiGLU
+  gemma-2b                  — MQA (kv=1), GeGLU, head_dim 256, scaled embed
+  mixtral-8x22b             — GQA + sliding-window attention, MoE 8e top-2
+  deepseek-v3-671b          — MLA, 1 shared + 256 routed top-8 (sigmoid,
+                              aux-free bias), first-3-dense, MTP head
 
 `Transformer` keeps the JAX package's parameter layout and names
 (`lm_schema`): ``embed (V, D)``, ``norm_attn``/``norm_ffn (L, D)`` and
-``final_norm (D,)`` in float32, ``attn.{wq (L, D, N, H), wk, wv (L, D, Nkv,
-H), wo (L, N, H, D)}`` (+ ``bq``/``bk``/``bv`` with QKV bias),
-``ffn_dense.{wi_gate, wi_up (L, D, F), wo (L, F, D)}`` and ``lm_head`` when
-the embeddings are not tied, every leaf in its schema dtype; so
-`params_from_jax` carries the JAX package's weights over one to one. A
-Python loop over layers takes the place of ``lax.scan``.
+``final_norm (D,)`` in float32; ``attn.{wq (L, D, N, H), wk, wv (L, D,
+Nkv, H), wo (L, N, H, D)}`` (+ ``bq``/``bk``/``bv`` with QKV bias), or the
+``mla`` group in its place (`models.mla.mla_schema`); ``ffn_dense.{wi_gate,
+wi_up (L', D, F'), wo (L', F', D)}`` over every layer of a dense model or
+the ``first_k_dense`` prefix of a MoE one (``F' = d_ff_dense or d_ff``),
+and the ``moe`` group over the rest (`models.moe.moe_schema`); ``lm_head``
+when the embeddings are not tied; ``mtp`` (DeepSeek-V3's multi-token
+prediction head), carried but not used by serving. Every leaf is in its
+schema dtype, so `params_from_jax` carries the JAX package's weights over
+one to one. A Python loop over layers takes the place of ``lax.scan``: the
+dense prefix, then the MoE suffix, whose layer ``l`` reads ``moe[…][l -
+first_k_dense]``.
 
 Every prefill attention (`Transformer.forward`) goes through
-``Kernels.flash_attention`` — the hand-written CUDA kernel on the card
-(``csrc/flash_attention.cu``), the plain version on the CPU. Decode
-(`Transformer.decode_step`, one query against the cache) runs
+``Kernels.flash_attention`` — the hand-written CUDA kernels on the card
+(``csrc/flash_attention*.cu``), the plain version on the CPU: the GQA
+attention with the config's window and softcap, and MLA's over its
+materialised heads (q/k head dim ``d_nope + d_rope``, v head dim ``d_v``).
+Decode (`Transformer.decode_step`, one query against the cache) runs
 `layers.attention`, or `layers.blocked_decode_attention` when
-``decode_kv_blocks > 1``, as the JAX package does. The decode cache is
-updated in place (the JAX package returns a new one): the returned
-`DecodeCache` holds the same tensors.
+``decode_kv_blocks > 1``, or MLA's absorbed `models.mla.mla_decode`, as the
+JAX package does. The MoE FFN (`models.moe.moe_ffn`) is plain PyTorch on
+both, as it is jnp outside any kernel there. The decode cache is updated in
+place (the JAX package returns a new one): the returned `DecodeCache` holds
+the same tensors.
 
-Not ported yet: the MoE and MLA LM families (their layers and the MTP head)
-and training (``loss_fn``); a config with ``moe`` or ``mla`` raises.
+Not ported: training — ``loss_fn``, the MoE auxiliary loss's use and the
+MTP loss — and MLA with a rolling cache (the JAX package asserts a sliding
+window for one, and its absorbed decode writes slot ``pos``); it raises.
 """
 from __future__ import annotations
 
@@ -31,6 +48,8 @@ from torch import nn
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     apply_rope,
     attention,
@@ -41,18 +60,10 @@ from repro_torch.models.layers import (
 from repro_torch.models.schema import DTYPES, attach, load_jax_params
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA/MQA LMs only; the MoE and MLA LM "
-            "families are not ported yet")
-
-
 # ------------------------------------------------------------------ schema
 def lm_schema(cfg: LMConfig) -> dict:
-    """The JAX package's ``lm_schema`` for a dense config, as a nested dict
-    of ``(shape, init kind, dtype)`` leaves in its order."""
-    _dense_only(cfg)
+    """The JAX package's ``lm_schema``, as a nested dict of ``(shape, init
+    kind, dtype)`` leaves in its order."""
     L, D, N, Nkv, H, F, V = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                              cfg.d_head, cfg.d_ff, cfg.vocab_size)
     dt = cfg.dtype
@@ -64,30 +75,51 @@ def lm_schema(cfg: LMConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         sch["lm_head"] = ((D, V), "lecun", dt)
-    attn = {
-        "wq": ((L, D, N, H), "lecun", dt),
-        "wk": ((L, D, Nkv, H), "lecun", dt),
-        "wv": ((L, D, Nkv, H), "lecun", dt),
-        "wo": ((L, N, H, D), "lecun", dt),
-    }
-    if cfg.qkv_bias:
-        attn["bq"] = ((L, N, H), "zeros", dt)
-        attn["bk"] = ((L, Nkv, H), "zeros", dt)
-        attn["bv"] = ((L, Nkv, H), "zeros", dt)
-    sch["attn"] = attn
-    sch["ffn_dense"] = {
-        "wi_gate": ((L, D, F), "lecun", dt),
-        "wi_up": ((L, D, F), "lecun", dt),
-        "wo": ((L, F, D), "lecun", dt),
-    }
+    if cfg.mla is not None:
+        sch["mla"] = mla_lib.mla_schema(cfg)
+    else:
+        attn = {
+            "wq": ((L, D, N, H), "lecun", dt),
+            "wk": ((L, D, Nkv, H), "lecun", dt),
+            "wv": ((L, D, Nkv, H), "lecun", dt),
+            "wo": ((L, N, H, D), "lecun", dt),
+        }
+        if cfg.qkv_bias:
+            attn["bq"] = ((L, N, H), "zeros", dt)
+            attn["bk"] = ((L, Nkv, H), "zeros", dt)
+            attn["bv"] = ((L, Nkv, H), "zeros", dt)
+        sch["attn"] = attn
+    k = _first_moe(cfg)
+    if k:
+        fd = (cfg.moe.d_ff_dense or F) if cfg.moe is not None else F
+        sch["ffn_dense"] = {
+            "wi_gate": ((k, D, fd), "lecun", dt),
+            "wi_up": ((k, D, fd), "lecun", dt),
+            "wo": ((k, fd, D), "lecun", dt),
+        }
+    if cfg.moe is not None:
+        sch["moe"] = moe_lib.moe_schema(cfg.moe, L - k, D, dt)
+    if cfg.mtp_depth > 0:
+        sch["mtp"] = {
+            "proj": ((2 * D, D), "lecun", dt),
+            "norm": ((D,), "zeros", "float32"),
+        }
     return sch
+
+
+def _first_moe(cfg: LMConfig) -> int:
+    """The first MoE layer: the dense prefix's length (all layers when the
+    model has no MoE)."""
+    return cfg.moe.first_k_dense if cfg.moe is not None else cfg.n_layers
 
 
 # ------------------------------------------------------------------ decode
 @dataclasses.dataclass
 class DecodeCache:
-    """Stacked caches: ``data = (k, v)``, each ``(L, B, S_cap, Nkv, H)``.
-    A ``rolling`` cache uses slot ``pos % s_cap`` (sliding-window archs)."""
+    """Stacked caches. ``kind`` ``"gqa"``: ``data = (k, v)``, each ``(L, B,
+    S_cap, Nkv, H)``; ``"mla"``: ``data = (c_kv (L, B, S_cap, kv_lora),
+    k_rope (L, B, S_cap, d_rope))``. A ``rolling`` cache (GQA only) uses
+    slot ``pos % s_cap`` (sliding-window archs)."""
 
     data: tuple
     kind: str
@@ -95,26 +127,34 @@ class DecodeCache:
     rolling: bool
 
 
+def _refuse_rolling_mla(cfg: LMConfig) -> None:
+    raise NotImplementedError(f"{cfg.name}: MLA with a rolling cache is not ported")
+
+
 def init_cache(cfg: LMConfig, batch: int, s_cap: int, *, rolling: bool = False,
                device=None) -> DecodeCache:
     """An empty cache of ``s_cap`` slots (at most ``sliding_window`` when
     ``rolling``) on ``device`` (``None``: the card)."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     if rolling:
+        if cfg.mla is not None:
+            _refuse_rolling_mla(cfg)
         if cfg.sliding_window is None:
             raise ValueError(f"{cfg.name}: a rolling cache needs a sliding window")
         s_cap = min(s_cap, cfg.sliding_window)
-    shape = (cfg.n_layers, batch, s_cap, cfg.n_kv_heads, cfg.d_head)
+    lead = (cfg.n_layers, batch, s_cap)
+    if cfg.mla is not None:
+        kind, shapes = "mla", (lead + (cfg.mla.kv_lora_rank,), lead + (cfg.mla.d_rope,))
+    else:
+        kind, shapes = "gqa", (lead + (cfg.n_kv_heads, cfg.d_head),) * 2
     dt = DTYPES[cfg.dtype]
-    data = (torch.zeros(shape, dtype=dt, device=dev), torch.zeros(shape, dtype=dt, device=dev))
-    return DecodeCache(data, "gqa", s_cap, rolling)
+    data = tuple(torch.zeros(sh, dtype=dt, device=dev) for sh in shapes)
+    return DecodeCache(data, kind, s_cap, rolling)
 
 
 # ------------------------------------------------------------------- model
 class Transformer(nn.Module):
-    """A dense decoder-only LM for serving, with the JAX package's
-    parameters.
+    """A decoder-only LM for serving, with the JAX package's parameters.
 
     ``device=None`` means the card (it raises without one; pass
     ``device="cpu"`` for the plain versions on the CPU). ``kernels``
@@ -134,7 +174,6 @@ class Transformer(nn.Module):
         kernels: "str | Kernels" = "auto",
     ):
         super().__init__()
-        _dense_only(cfg)
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -171,27 +210,44 @@ class Transformer(nn.Module):
             v = v + p["bv"][l]
         return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
-    def _out_and_ffn(self, l: int, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-        """The residual stream after attention output ``o (B, S, N, H)`` and
-        the layer's GLU MLP."""
+    def _attn_out(self, l: int, o: torch.Tensor) -> torch.Tensor:
+        """The GQA attention output ``o (B, S, N, H)`` projected to ``(B, S,
+        D)``."""
+        B, S = o.shape[:2]
+        wo = self.attn["wo"][l]
+        return (o.reshape(B * S, -1) @ wo.reshape(-1, wo.shape[-1])).view(B, S, -1)
+
+    def ffn(self, l: int, h: torch.Tensor) -> torch.Tensor:
+        """Layer ``l``'s FFN on the normed stream ``h (B, S, D)``: the GLU
+        MLP of a dense layer, or `models.moe.moe_ffn` over the ``B·S``
+        tokens of a MoE layer (its auxiliary loss dropped: serving)."""
         cfg = self.cfg
-        B, S, D = x.shape
-        wo = self.attn["wo"][l].reshape(-1, D)
-        x = x + (o.reshape(B * S, -1) @ wo).view(B, S, D)
-        h2 = rms_norm(x, self.norm_ffn[l], cfg.norm_eps)
-        f = self.ffn_dense
-        return x + glu_mlp(h2, f["wi_gate"][l], f["wi_up"][l], f["wo"][l], cfg.act)
+        k = _first_moe(cfg)
+        if l < k:
+            f = self.ffn_dense
+            return glu_mlp(h, f["wi_gate"][l], f["wi_up"][l], f["wo"][l], cfg.act)
+        B, S, D = h.shape
+        p = {name: w[l - k] for name, w in self.moe.items()}
+        return moe_lib.moe_ffn(h.reshape(B * S, D), p, cfg.moe, cfg.act)[0].view(B, S, D)
 
     def layer(self, l: int, x: torch.Tensor, positions: torch.Tensor):
         """Layer ``l`` over a whole sequence (its attention through
-        ``Kernels.flash_attention``): ``(x, k, v)``, the residual stream
-        after the layer and the layer's rotated keys and values."""
+        ``Kernels.flash_attention``): ``(x, *cache)``, the residual stream
+        after the layer and the layer's cache entries — rotated keys and
+        values (GQA), or ``c_kv`` and ``k_rope`` (MLA)."""
         cfg = self.cfg
-        q, k, v = self._qkv(l, rms_norm(x, self.norm_attn[l], cfg.norm_eps), positions)
-        o = self.kernels.flash_attention(
-            q, k, v, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-        del q
-        return self._out_and_ffn(l, x, o), k, v
+        h = rms_norm(x, self.norm_attn[l], cfg.norm_eps)
+        if cfg.mla is not None:
+            a, kv = mla_lib.mla_attention(self.mla, l, h, positions, cfg,
+                                          self.kernels.flash_attention)
+        else:
+            q, k, v = self._qkv(l, h, positions)
+            o = self.kernels.flash_attention(
+                q, k, v, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+            del q
+            a, kv = self._attn_out(l, o), (k, v)
+        x = x + a
+        return x + self.ffn(l, rms_norm(x, self.norm_ffn[l], cfg.norm_eps)), *kv
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """The residual stream ``(B, S, D)`` → logits ``(B, S, V)``."""
@@ -202,28 +258,29 @@ class Transformer(nn.Module):
     # ------------------------------------------------------------- forward
     def forward(self, tokens: torch.Tensor, collect_cache: bool = False):
         """Full-sequence forward (prefill): ``tokens (B, S)`` → ``(logits
-        (B, S, V), (k, v) or None)``, the caches stacked ``(L, B, S, Nkv,
-        H)`` when ``collect_cache``."""
+        (B, S, V), cache or None)``, the cache entries stacked ``(L, B, S,
+        …)`` (`DecodeCache`'s ``data``) when ``collect_cache``."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed_tokens(tokens)
         positions = torch.arange(S, device=x.device).expand(B, S)
         kv = None
-        if collect_cache:
-            shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
-            kv = (torch.empty(shape, dtype=x.dtype, device=x.device),
-                  torch.empty(shape, dtype=x.dtype, device=x.device))
         for l in range(cfg.n_layers):
-            x, k, v = self.layer(l, x, positions)
-            if kv is not None:
-                kv[0][l] = k
-                kv[1][l] = v
+            x, *parts = self.layer(l, x, positions)
+            if collect_cache:
+                if kv is None:
+                    kv = tuple(torch.empty((cfg.n_layers, *t.shape), dtype=t.dtype,
+                                           device=t.device) for t in parts)
+                for c, t in zip(kv, parts):
+                    c[l] = t
+            del parts
         return self.head(x), kv
 
     def prefill(self, tokens: torch.Tensor):
         """Full forward + caches: ``(logits, DecodeCache)`` of ``S`` slots."""
         logits, kv = self.forward(tokens, collect_cache=True)
-        return logits, DecodeCache(kv, "gqa", tokens.shape[1], False)
+        kind = "mla" if self.cfg.mla is not None else "gqa"
+        return logits, DecodeCache(kv, kind, tokens.shape[1], False)
 
     def decode_step(self, cache: DecodeCache, token: torch.Tensor, pos: int):
         """One token for the whole batch: ``token (B, 1)`` at position
@@ -237,6 +294,8 @@ class Transformer(nn.Module):
         positions = torch.full((B, 1), pos, dtype=torch.int64, device=dev)
         S_cap = cache.s_cap
         if cache.rolling:
+            if cfg.mla is not None:
+                _refuse_rolling_mla(cfg)
             slot = pos % S_cap
             key_slots = torch.arange(S_cap, device=dev)
             key_pos = pos - torch.remainder(pos - key_slots, S_cap)  # < 0: an empty slot
@@ -247,20 +306,25 @@ class Transformer(nn.Module):
             key_pos = torch.arange(S_cap, device=dev)
         pos_q = torch.full((1,), pos, dtype=torch.int64, device=dev)
         blocked = cfg.decode_kv_blocks > 1 and S_cap % cfg.decode_kv_blocks == 0
-        ck_all, cv_all = cache.data
+        c0, c1 = cache.data
         for l in range(cfg.n_layers):
             h = rms_norm(x, self.norm_attn[l], cfg.norm_eps)
-            q, k, v = self._qkv(l, h, positions)
-            ck_all[l, :, slot] = k[:, 0]
-            cv_all[l, :, slot] = v[:, 0]
-            if blocked:
-                o = blocked_decode_attention(
-                    q, ck_all[l], cv_all[l], pos_q, key_pos, cfg.decode_kv_blocks,
-                    window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+            if cfg.mla is not None:
+                a = mla_lib.mla_decode(self.mla, l, h, pos, c0[l], c1[l], cfg)
             else:
-                o = attention(q, ck_all[l], cv_all[l], pos_q, key_pos,
-                              window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-            x = self._out_and_ffn(l, x, o)
+                q, k, v = self._qkv(l, h, positions)
+                c0[l, :, slot] = k[:, 0]
+                c1[l, :, slot] = v[:, 0]
+                if blocked:
+                    o = blocked_decode_attention(
+                        q, c0[l], c1[l], pos_q, key_pos, cfg.decode_kv_blocks,
+                        window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+                else:
+                    o = attention(q, c0[l], c1[l], pos_q, key_pos,
+                                  window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+                a = self._attn_out(l, o)
+            x = x + a
+            x = x + self.ffn(l, rms_norm(x, self.norm_ffn[l], cfg.norm_eps))
         return self.head(x), cache
 
 

@@ -1,7 +1,6 @@
 """Family-specific serving entry points, as the JAX package's
-``train/step.make_serve_fns``. The port serves the dense LM, GNN and recsys
-families; training steps, and the MoE and MLA LM families, are not ported
-yet."""
+``train/step.make_serve_fns``. The port serves the LM (dense, MoE and MLA),
+GNN and recsys families; training steps are not ported yet."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -16,7 +15,7 @@ def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
     """The serving entry points of ``model`` (built for ``cfg``), run under
     `torch.inference_mode`. Inputs may be numpy arrays or tensors; they are
     moved to the model's device. For `LMConfig` (``model`` a
-    `repro_torch.models.transformer.Transformer`, dense GQA/MQA):
+    `repro_torch.models.transformer.Transformer`: dense GQA/MQA, MoE, MLA):
 
       * ``"prefill"(tokens)`` → ``(logits (B, S, V), DecodeCache)``;
       * ``"decode"(cache, token, pos)`` → ``(logits (B, 1, V), DecodeCache)``
@@ -34,8 +33,8 @@ def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
     """
     if not isinstance(cfg, (LMConfig, GNNConfig, RecSysConfig)):
         raise NotImplementedError(
-            f"{type(cfg).__name__}: the port serves the dense LM, GNN and recsys families; "
-            "the MoE and MLA variants of the LM family, and training, are not ported yet")
+            f"{type(cfg).__name__}: the port serves the LM, GNN and recsys families; "
+            "training is not ported yet")
     if model.cfg != cfg:
         raise ValueError(f"the model was built for {model.cfg.name!r}, not {cfg.name!r}")
 

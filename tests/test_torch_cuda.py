@@ -629,6 +629,8 @@ def test_flash_attention(dev, B, S, Nq, Nkv, H, Hv, window, softcap, dtype):
     (1, 200, 8, 2, 128, 256, 1000, None, "tc", torch.bfloat16),    # window past S, Hv > H
     (1, 70, 4, 1, 40, 24, 20, 50.0, "tc", torch.bfloat16),         # head dims not multiples of 16
     (1, 70, 4, 2, 8, 8, None, None, "tc", torch.bfloat16),
+    (1, 130, 4, 4, 192, 128, None, None, "tc", torch.bfloat16),    # MLA: H 192 (HD 256), Hv 128
+    (2, 300, 8, 8, 192, 128, None, None, "tc", torch.bfloat16),    # G = 1
     (1, 70, 4, 2, 30, 30, None, None, "fma", torch.bfloat16),  # 60-byte rows: no TMA descriptor
     (1, 70, 4, 2, 20, 36, 9, None, "fma", torch.bfloat16),
     (1, 40, 128, 1, 64, 64, None, None, "fma", torch.bfloat16),  # 128 heads a kv head: over a tile
@@ -652,6 +654,8 @@ def test_flash_attention(dev, B, S, Nq, Nkv, H, Hv, window, softcap, dtype):
     (1, 70, 4, 2, 8, 8, None, None, "tf32", torch.float32),
     (1, 70, 4, 2, 4, 4, 3, None, "tf32", torch.float32),
     (2, 300, 64, 8, 128, 128, 100, 30.0, "tf32", torch.float32),  # qwen2-72b's heads
+    (1, 130, 4, 4, 192, 128, None, None, "tf32", torch.float32),  # MLA: H 192, Hv 128, G = 1
+    (2, 300, 8, 8, 192, 128, None, None, "tf32", torch.float32),
     (1, 70, 4, 2, 30, 30, None, None, "fma", torch.float32),  # 120-byte rows: no TMA descriptor
     (1, 70, 4, 2, 20, 30, 9, None, "fma", torch.float32),
     (1, 40, 128, 1, 64, 64, None, None, "fma", torch.float32),  # 128 heads a kv head: over a tile
@@ -659,7 +663,7 @@ def test_flash_attention(dev, B, S, Nq, Nkv, H, Hv, window, softcap, dtype):
 def test_flash_attention_routes(dev, B, S, Nq, Nkv, H, Hv, window, softcap, route, dtype):
     """Edges of the three routes: the tensor-core routes at the packed-row
     tile's and the K/V tile's edges, G 1, 3, 8, 16 (and 64 in fp32), head
-    dims 4-256, Hv != H, window 1 and past S, softcap; the FMA route for
+    dims 4-256, Hv != H (MLA's 192 and 128), window 1 and past S, softcap; the FMA route for
     shapes TMA cannot describe, in both dtypes. Each case asserts which
     route's counter moved; each output row within ``tol ·`` its max|plain|
     (bf16 2e-2, fp32 2e-5)."""
@@ -704,13 +708,15 @@ def test_flash_attention_tc_takes_unaligned_views(dev, dtype, route):
 
 
 def test_lm_on_card_matches_the_cpu(dev):
-    """gemma-2b and qwen2-72b smoke configs (fp32), the same weights on card
-    and CPU: prefill logits and the decode step within ``1e-4 ·`` each row's
-    max|cpu|, TF32 off; the prefill launches one kernel a layer, on the
-    split-TF32 route (head dims 32 and 16)."""
+    """gemma-2b, qwen2-72b, mixtral-8x22b and deepseek-v3 smoke configs
+    (fp32), the same weights on card and CPU: prefill logits and the decode
+    step within ``1e-4 ·`` each row's max|cpu|, TF32 off; the prefill
+    launches one kernel a layer, on the split-TF32 route (head dims 32, 16,
+    16 and MLA's 24 and 16). Each config's worst ratio is printed (``-s``)
+    whether it passes or not."""
     import dataclasses
 
-    from repro_torch.configs import gemma_2b, qwen2_72b
+    from repro_torch.configs import deepseek_v3_671b, gemma_2b, mixtral_8x22b, qwen2_72b
     from repro_torch.extras.flash_attention import flash_attention as fa
     from repro_torch.data.pipeline import lm_batch
     from repro_torch.models.transformer import Transformer
@@ -718,7 +724,8 @@ def test_lm_on_card_matches_the_cpu(dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     for cfg in (gemma_2b.smoke(), dataclasses.replace(qwen2_72b.smoke(), sliding_window=40,
-                                                      attn_logit_softcap=30.0)):
+                                                      attn_logit_softcap=30.0),
+                mixtral_8x22b.smoke(), deepseek_v3_671b.smoke()):
         gpu = Transformer(cfg, device=dev)
         cpu = Transformer(cfg, device="cpu")
         cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
@@ -731,15 +738,19 @@ def test_lm_on_card_matches_the_cpu(dev):
             r: cfg.n_layers if r == "tf32" else 0 for r in fa.ROUTES}
         want, c_cpu = f_cpu["prefill"](tokens)
         scale = want.abs().amax(dim=-1, keepdim=True)
-        assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), (
-            f"{cfg.name}: worst |card - cpu| / max|cpu| of its row "
-            f"{((got.cpu() - want).abs() / scale).max().item()}")
+        prefill_ratio = ((got.cpu() - want).abs() / scale).max().item()
         tok = want[:, -1:].argmax(-1)
         # the cache has no free slot past the prompt: decode the last position again
-        got, _ = f_gpu["decode"](c_gpu, tok, 129)
-        want, _ = f_cpu["decode"](c_cpu, tok, 129)
-        scale = want.abs().amax(dim=-1, keepdim=True)
-        assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), cfg.name
+        got_d, _ = f_gpu["decode"](c_gpu, tok, 129)
+        want_d, _ = f_cpu["decode"](c_cpu, tok, 129)
+        scale_d = want_d.abs().amax(dim=-1, keepdim=True)
+        decode_ratio = ((got_d.cpu() - want_d).abs() / scale_d).max().item()
+        print(f"[lm on card vs cpu] {cfg.name}: worst |card - cpu| / max|cpu| of its row: "
+              f"prefill {prefill_ratio:.3e}, decode {decode_ratio:.3e}")
+        assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), (
+            f"{cfg.name}: worst |card - cpu| / max|cpu| of its row {prefill_ratio}")
+        assert ((got_d.cpu() - want_d).abs() <= 1e-4 * scale_d).all(), (
+            f"{cfg.name}: decode {decode_ratio}")
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):

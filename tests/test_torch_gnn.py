@@ -233,15 +233,20 @@ def test_serve_fn_on_minibatch_matches_jax(graphs):
 
 
 def test_lm_configs_still_raise():
+    """What the port does not serve still raises and names it (training); a
+    MoE LM config, refused before, now builds and serves."""
     from repro_torch.configs import MoEConfig, gemma_2b
     from repro_torch.models.transformer import Transformer
 
     model = gnn.GNN(SMOKE["gin"], device="cpu")
-    with pytest.raises(NotImplementedError, match="LM family"):
+    with pytest.raises(NotImplementedError, match="LM, GNN and recsys families; training is "
+                                                  "not ported yet"):
         make_serve_fns(object(), model)
     moe = dataclasses.replace(gemma_2b.smoke(), moe=MoEConfig(n_experts=4, top_k=2,
                                                               d_ff_expert=32))
-    with pytest.raises(NotImplementedError, match="MoE and MLA LM families are not ported yet"):
-        Transformer(moe, device="cpu")
+    lm = Transformer(moe, device="cpu")
+    logits, cache = make_serve_fns(moe, lm)["prefill"](np.zeros((1, 5), np.int32))
+    assert logits.shape == (1, 5, moe.vocab_size) and torch.isfinite(logits).all()
+    assert cache.kind == "gqa" and "moe" in dict(lm.named_children())
     with pytest.raises(ValueError, match="built for"):
         make_serve_fns(SMOKE["egnn"], model)

@@ -197,8 +197,19 @@ def test_device_none_means_the_card():
 
 
 def test_serve_fns_refuse_other_families():
+    """The refusal names only what is left (training); an MLA + MoE LM
+    config (deepseek-v3's smoke config) serves."""
+    from repro_torch.configs import deepseek_v3_671b
+    from repro_torch.models.transformer import Transformer
+
     model = recsys.XDeepFM(xdeepfm.smoke(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MLA variants of the LM family, and training, are not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match=r"the port serves the LM, GNN and recsys families; "
+                             r"training is not ported yet$"):
         make_serve_fns(object(), model)
     with pytest.raises(ValueError, match="built for"):
         make_serve_fns(NARROW, model)
+    cfg = deepseek_v3_671b.smoke()
+    logits, cache = make_serve_fns(cfg, Transformer(cfg, device="cpu"))["prefill"](
+        np.zeros((1, 4), np.int32))
+    assert logits.shape == (1, 4, cfg.vocab_size) and cache.kind == "mla"
