@@ -30,6 +30,25 @@ result lines are printed only when every phase passed):
      PyTorch versions) on the card must give identical rows; the inputs of
      each op's largest call there are kept for phase 5, and every
      ``stwig_expand`` and ``bitset_build`` call with its output for phase 6;
+  serve — the continuous-batching server (``session.serve()``, `ServerConfig`'s
+     defaults: 8 in flight, blocks of 512 rows, first 1,024 matches) on
+     phase 3's session with the CUDA kernels again and its graph:
+     ``mixed_workload(g, 32, n_labels=418, rng=default_rng(0))`` (DFS and
+     random queries of 4-7 nodes, alternating). The counts are zeroed
+     before and read after (each of the matcher's five kernels > 0); no
+     outcome may be ``"failed"`` (a per-query exception, a kernel's
+     included, is isolated into that status) and ``global_degradations``
+     must be 0. Every query's rows must equal, in order, its sequential
+     ``compiled.stream(max_matches=1024, block_rows=512)``, and each row is
+     checked as an embedding. Printed: queries a second, p50/p99 of each
+     outcome's ``wall_s``, ``ttfp_s``, ``queue_s``, the served/partial/failed
+     split, join and setup quanta, warm admissions, cache hits and misses,
+     peak memory. Then the same workload open loop (``with session.serve()
+     as srv``: the scheduler on its own thread, submissions and
+     ``Ticket.result()`` on the main one), the same rows a query; a
+     ``deadline_s=0`` server sheds every query at admission with no launch
+     and no quantum; and one ``server.serve(workload)`` traced with
+     ``torch.profiler`` (device time and busy share, a measurement only);
   5. kernels — each matcher kernel against its plain version on the card,
      on those main-path inputs and on small adversarial cases, bit for bit
      (tolerance 0: all outputs are integers or flags); ``bitset_lookup``'s
@@ -97,6 +116,17 @@ result lines are printed only when every phase passed):
   7. a 2,000-node graph gives the same rows on the CPU and on the card, on
      the local engine and on the sharded one at S = 4 (smaller tables:
      every CPU shard probes all four shards' tables);
+  chaos — seeded faults (``GraphSession.open(..., chaos=ChaosInjector(...))``,
+     kernels ``"chaos(cuda)"``) on phase 7's graph in 4 shards on the card,
+     on phase 7's queries whose local and clean sharded results are both
+     complete at ``max_matches=0, adaptive=False``: shard 1 dead for good
+     (rows a subset of the local session's, ``complete=False``, health
+     ``"dead"``, ``fetch_retries`` the policy's 3), shard 2 dead for 2
+     attempts (the clean rows, ``"recovered"``), shard 3's fetch truncated
+     to half (a subset, ``"truncated"``), shard 0 slow (the clean rows,
+     ``"slow"``); the matcher's five kernels launched under chaos (counted);
+     forced overflow on the local engine under ``RetryPolicy(ceiling_bytes=
+     1.0)``: partial, ``"overflow-ceiling"``, its rows a subset;
   8. recsys — xDeepFM at its published widths (39 fields, 1,000,000 rows a
      field, embed 10, CIN 200-200-200, MLP 400-400, bag 4; random weights
      from seed 0) built on the card and served through ``make_serve_fns``:
@@ -1394,6 +1424,195 @@ def sharded_small(small, queries, caps) -> str:
             f"CPU and card, the local session's set on the {n_same} complete ones")
 
 
+# ------------------------------------------------------------------ [serve]
+def pct(xs, q: float) -> str:
+    return "-" if not xs else f"{float(np.percentile(xs, q)) * 1e3:.3f}"
+
+
+def served_rows(outcomes, want, what: str) -> None:
+    """Fail unless every outcome's rows equal ``want``'s, in order."""
+    for i, (o, w) in enumerate(zip(outcomes, want)):
+        if o.rows.shape != w.shape or not (o.rows == w).all():
+            fail(f"[serve] q{i}: {what} gave {o.rows.shape[0]} rows, not the sequential "
+                 f"stream's {w.shape[0]} in its order")
+
+
+def no_failure(server, outcomes, what: str) -> None:
+    """A failed outcome hides its exception (a kernel that did not launch,
+    too) behind a status: any one, or a global degradation, fails."""
+    bad = [(i, o.error) for i, o in enumerate(outcomes) if o.status == "failed"]
+    if bad:
+        fail(f"[serve] {what}: failed outcomes {bad}")
+    if server.stats.global_degradations:
+        fail(f"[serve] {what}: {server.stats.global_degradations} global degradations")
+
+
+def phase_serve(session, g, edge_keys) -> None:
+    """The continuous-batching server on the main path's session and graph:
+    ``mixed_workload`` of 32 queries served at `ServerConfig`'s defaults,
+    held query by query to the sequential streams; open loop from the main
+    thread with the scheduler on its own; a deadline of 0 sheds all."""
+    from repro_torch.api.serve import ServerConfig, summarize_outcomes
+    from repro_torch.kernels import cuda
+    from repro_torch.workloads import mixed_workload
+
+    session.set_kernels("cuda")
+    workload = mixed_workload(g, 32, n_labels=PATENTS["n_labels"], rng=np.random.default_rng(0))
+    cfg = ServerConfig()
+    log(f"[serve] mixed_workload: {len(workload)} of 32 drawn queries (a DFS query from "
+        f"an isolated node is dropped); nodes {[q.n_nodes for q in workload]}, edges "
+        f"{[len(q.edges) for q in workload]}); ServerConfig defaults: max_inflight "
+        f"{cfg.max_inflight}, block_rows {cfg.block_rows}, max_matches {cfg.max_matches}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hits, misses = session.cache.hits, session.cache.misses
+    cuda.reset_launch_counts()
+    server = session.serve()
+    t0 = time.perf_counter()
+    outcomes = server.serve(workload)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    no_failure(server, outcomes, "synchronous serve")
+    for sym in MATCHER_KERNELS:
+        if counts[sym] <= 0:
+            fail(f"[serve] kernel {sym} was never launched while serving")
+    st = server.stats
+    log(f"[serve] served {len(workload)} queries in {wall:.3f} s: "
+        f"{len(workload) / wall:.2f} queries a second")
+    for name in ("wall_s", "ttfp_s", "queue_s"):
+        xs = [getattr(o, name) for o in outcomes if getattr(o, name) is not None]
+        log(f"[serve] {name}: p50 {pct(xs, 50)} ms, p99 {pct(xs, 99)} ms over {len(xs)} queries")
+    log(f"[serve] {summarize_outcomes(outcomes)} (served/partial/failed, matches); "
+        f"partial reasons {[o.stats.degrade_reason or 'overflow' for o in outcomes if o.status == 'partial']}")
+    log(f"[serve] join quanta {st.join_quanta}, setup quanta {st.setup_quanta}, warm admissions "
+        f"{st.warm_admissions}, peak in flight {st.peak_inflight}, {len(st.buckets)} buckets; "
+        f"cache {session.cache.hits - hits} hits / {session.cache.misses - misses} misses; "
+        f"global degradations {st.global_degradations}; launches "
+        f"{ {k: counts[k] for k in MATCHER_KERNELS} }; max_memory_allocated "
+        f"{peak / 1e9:.3f} GB")
+
+    # each query alone, as a stream: the rows the server must give, in order
+    want = []
+    for q in workload:
+        pages = list(session.compile(q).stream(max_matches=cfg.max_matches,
+                                               block_rows=cfg.block_rows))
+        want.append(np.concatenate([p.rows for p in pages]) if pages
+                    else np.zeros((0, q.n_nodes), np.int64))
+    served_rows(outcomes, want, "the server")
+    for q, o in zip(workload, outcomes):
+        embedding_check(g, edge_keys, q, o.rows)
+    log(f"[serve] every query's {sum(len(w) for w in want)} rows equal, in order, its "
+        f"sequential compiled.stream(max_matches={cfg.max_matches}, "
+        f"block_rows={cfg.block_rows}); every row a valid embedding")
+
+    # open loop: the scheduler on its own thread, submissions from this one
+    t0 = time.perf_counter()
+    with session.serve() as srv:
+        tickets = [srv.submit(q) for q in workload]
+        threaded = [t.result(timeout=600) for t in tickets]
+    torch.cuda.synchronize()
+    no_failure(srv, threaded, "open loop")
+    served_rows(threaded, want, "the open-loop server")
+    log(f"[serve] open loop (with session.serve() as srv, submitted from the main thread): "
+        f"the same rows a query, {time.perf_counter() - t0:.3f} s")
+
+    # a deadline of 0: every query is shed at admission, nothing launches
+    cuda.reset_launch_counts()
+    shed_server = session.serve(deadline_s=0.0)
+    shed = shed_server.serve(workload)
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in cuda.launch_counts().items() if v}
+    if moved or shed_server.stats.setup_quanta or shed_server.stats.join_quanta:
+        fail(f"[serve] deadline 0: launches {moved}, quanta {shed_server.stats.as_dict()}")
+    if not all(o.status == "partial" and o.stats.degrade_reason == "deadline" and not o.n_matches
+               for o in shed):
+        fail("[serve] deadline 0: a query was not shed at admission")
+    log(f"[serve] deadline_s=0: {summarize_outcomes(shed)}, every query shed at admission "
+        f"(reason deadline), 0 launches, 0 quanta")
+    log(f"[serve] one server.serve(workload) traced: "
+        f"{profile_line(device_profile(lambda: session.serve().serve(workload), reps=1))}")
+
+
+# ------------------------------------------------------------------ [chaos]
+def phase_chaos(small, queries, caps) -> None:
+    """Seeded faults on the sharded engine (4 shards of the 2,000-node
+    graph, on the card) and forced overflow on the local engine, every
+    result held to the clean runs: partial, typed, and never a wrong row."""
+    from repro_torch.api import GraphSession
+    from repro_torch.graphstore.partition import PartitionedGraph
+    from repro_torch.kernels import cuda
+    from repro_torch.runtime import ChaosConfig, ChaosInjector, RetryPolicy
+
+    pg4 = PartitionedGraph.build(small, 4)
+    loc, clean = GraphSession.open(small), GraphSession.open(pg4)
+    # (query, local rows, clean sharded rows), both complete at these caps:
+    # no escalation re-runs the fetch gate (a healed shard would read "ok")
+    held = []
+    for q in queries:
+        a = loc.run(q, max_matches=0, adaptive=False, **caps)
+        b = clean.run(q, max_matches=0, adaptive=False, **caps)
+        if a.complete and b.complete and a.n_matches:
+            held.append((q, set(map(tuple, a.rows.tolist())), set(map(tuple, b.rows.tolist()))))
+    if not held:
+        fail("[chaos] no query is complete on both clean engines: nothing holds the faults")
+    policy = RetryPolicy()
+    faults = {
+        "dead shard 1, never heals": dict(dead_shard=1),
+        "dead shard 2, heals after 2 attempts": dict(dead_shard=2, dead_heals_after=2),
+        "shard 3's fetch truncated to keep_frac 0.5": dict(truncate_shard=3,
+                                                         truncate_keep_frac=0.5),
+        "shard 0 slow (5 ms)": dict(slow_shard=0, slow_delay_s=0.005),
+    }
+    cuda.reset_launch_counts()
+    for what, kw in faults.items():
+        n_rows, health = [], set()
+        for q, want_local, want_clean in held:
+            s = GraphSession.open(pg4, chaos=ChaosInjector(ChaosConfig(seed=0, **kw)))
+            if s.kernels.name != "chaos(cuda)":
+                fail(f"[chaos] chaos= on the card gave kernels {s.kernels.name!r}")
+            res = s.run(q, max_matches=0, adaptive=False, retry_policy=policy, **caps)
+            got = set(map(tuple, res.rows.tolist()))
+            h, reason = res.stats.shard_health, res.stats.degrade_reason
+            health.add(tuple(sorted(h.items())))
+            n_rows.append(len(got))
+            if "never heals" in what:
+                ok = (got <= want_local and not res.complete and h[1] == "dead"
+                      and reason == "shard-fault" and res.stats.fetch_retries == policy.fetch_retries)
+            elif "heals" in what:
+                ok = got == want_clean and res.complete and h[2] == "recovered"
+            elif "truncated" in what:
+                ok = got <= want_local and not res.complete and h[3] == "truncated"
+            else:
+                ok = got == want_clean and res.complete and h[0] == "slow"
+            if not ok or len(got) != res.n_matches:
+                fail(f"[chaos] {what}: {len(got)} rows (clean {len(want_clean)}), complete "
+                     f"{res.complete}, reason {reason}, health {h}, fetch retries "
+                     f"{res.stats.fetch_retries}")
+        log(f"[chaos] sharded, 4 shards, {what}: rows a query {n_rows} (clean "
+            f"{[len(c) for _, _, c in held]}), shard health {sorted(health)}: held")
+    counts = cuda.launch_counts()
+    for sym in MATCHER_KERNELS:
+        if counts[sym] <= 0:
+            fail(f"[chaos] kernel {sym} was never launched under chaos(cuda)")
+    # forced overflow on the local engine: the first result is final under a
+    # ceiling below any escalation, typed, its rows a subset (here all)
+    inj = ChaosInjector(ChaosConfig(seed=0, force_overflow=True))
+    s = GraphSession.open(small, chaos=inj)
+    for q, want_local, _ in held:
+        res = s.run(q, max_matches=0, retry_policy=RetryPolicy(ceiling_bytes=1.0), **caps)
+        got = set(map(tuple, res.rows.tolist()))
+        if res.complete or res.stats.degrade_reason != "overflow-ceiling" or not got <= want_local:
+            fail(f"[chaos] forced overflow: complete {res.complete}, reason "
+                 f"{res.stats.degrade_reason}, {len(got)} rows of {len(want_local)}")
+    log(f"[chaos] local, forced overflow under RetryPolicy(ceiling_bytes=1.0): {len(held)} "
+        f"queries partial, reason overflow-ceiling, rows a subset of the clean run's "
+        f"({inj.op_calls['mask_to_host']} mask_to_host calls through chaos(cuda)); launches "
+        f"over the sharded fault runs { {k: counts[k] for k in MATCHER_KERNELS} }")
+
+
 # ---------------------------------------------------------------- phase 8
 def rel_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     """max|got - want| / max|want|; fails above 1e-4 (fp32, TF32 off, sums
@@ -2675,6 +2894,9 @@ def main() -> None:
         fail("stream pages differ between kernels='cuda' and kernels='torch'")
     log("[torch] rows and stream pages identical to kernels='cuda'")
 
+    # ---- [serve]: the continuous-batching server on the same session -------
+    phase_serve(session, g, edge_keys)
+
     # ---- phase 5: each kernel against its plain version --------------------
     kernel_rows = phase_kernels(recorder, counts, dev)
 
@@ -2700,6 +2922,9 @@ def main() -> None:
         n_rows += len(a)
     log(f"[small] 2,000-node graph: 6 queries, {n_rows} rows, identical on CPU and card")
     log(f"[small] {sharded_small(small, make_queries(small, 6, seed=1), SMALL_SHARDED_CAPS)}")
+
+    # ---- [chaos]: seeded faults on the small graph's 4 shards and engine --
+    phase_chaos(small, make_queries(small, 6, seed=1), SMALL_SHARDED_CAPS)
     del g, pg, edge_keys, s_cpu, s_gpu
     torch.cuda.empty_cache()
 

@@ -6,6 +6,8 @@ query compiled in it.
 """
 from __future__ import annotations
 
+from typing import Iterable, Sequence
+
 from repro_torch.api.compiled import CompiledQuery
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
 from repro_torch.core.cache import ExecutableCache
@@ -17,6 +19,7 @@ from repro_torch.core.query import QueryGraph
 from repro_torch.core.result import MatchResult
 from repro_torch.graphstore.csr import Graph
 from repro_torch.graphstore.partition import PartitionedGraph
+from repro_torch.runtime.server import QueryServer, ServerConfig
 
 BACKENDS = ("auto", "local", "sharded")
 
@@ -44,6 +47,7 @@ class GraphSession:
         n_shards: int | None = None,
         partition_mode: str = "hash",
         cache_size: int = 512,
+        chaos=None,
     ) -> "GraphSession":
         """Open a session on ``device`` (``None``: the card; it raises if
         there is none — there is no fallback to the CPU).
@@ -64,6 +68,14 @@ class GraphSession:
         PyTorch versions elsewhere), ``"cuda"``, ``"torch"``, or a `Kernels`
         instance (`repro_torch.core.backend`). The choice keys every cached
         step, so sessions can compare kernel backends.
+
+        ``chaos`` attaches a seeded fault injector
+        (`repro_torch.runtime.chaos.ChaosInjector`) to the engine: injected
+        faults (slow/dead shard, truncated fetch, forced overflow) are
+        handled by the resilience layer and surface as typed partial
+        results. The injector wraps the kernel backend under a distinct
+        name (``"chaos(cuda)"`` on the card), so chaos steps never share
+        cache entries with clean ones.
         """
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -96,9 +108,13 @@ class GraphSession:
                         f"the local backend needs a 1-shard partition, got "
                         f"{pg.n_shards} shards (use backend='sharded' or re-partition)"
                     )
-                engine = SubgraphMatcher(pg, device=dev, cache=cache, kernels=kern)
+                engine = SubgraphMatcher(
+                    pg, device=dev, cache=cache, kernels=kern, chaos=chaos
+                )
             else:
-                engine = DistributedMatcher(pg, device=dev, cache=cache, kernels=kern)
+                engine = DistributedMatcher(
+                    pg, device=dev, cache=cache, kernels=kern, chaos=chaos
+                )
         return cls(pg, engine, backend, cache)
 
     # ----------------------------------------------------------- query API
@@ -148,6 +164,37 @@ class GraphSession:
             deadline_s=deadline_s,
             **(engine_kw or {}),
         )
+
+    def serve(self, **cfg) -> QueryServer:
+        """Open a continuous-batching `QueryServer` over this session.
+        ``cfg`` keywords are `ServerConfig` fields::
+
+            server = session.serve(max_inflight=8, deadline_s=0.5)
+            outcomes = server.serve(queries)       # synchronous batch
+            with session.serve() as srv:           # background scheduler
+                t = srv.submit(q)
+                out = t.result()
+
+        Concurrent queries with identical plan shapes share cached steps
+        through this session's `ExecutableCache`; the server interleaves
+        their block joins on the one device and enforces per-query
+        deadlines and budgets, so overload degrades per query, never
+        globally."""
+        return QueryServer(self, ServerConfig(**cfg))
+
+    def run_batch(
+        self,
+        queries: Sequence[QueryGraph] | Iterable[QueryGraph],
+        *,
+        adaptive: bool = True,
+        **caps,
+    ) -> list[MatchResult]:
+        """Run a workload: every query is planned up front, then run against
+        the shared cache, so queries with identical STwig specs and join
+        schemas reuse each other's steps. Results come back in input order
+        and equal sequential `run` calls."""
+        compiled = [self.compile(q, **caps) for q in queries]
+        return [cq.run(adaptive=adaptive) for cq in compiled]
 
     # ------------------------------------------------------------ plumbing
     @property

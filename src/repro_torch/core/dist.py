@@ -28,6 +28,12 @@ whole tables (`_match_once`), and the streaming pair (`_stream_setup`,
 `_stream_block`): exploration and the fetch run once per query, and each
 block joins head rows ``[lo, lo+B)`` of every shard.
 
+Faults (`repro_torch.runtime.chaos`) enter at the host-side fetch
+boundary, `_chaos_gate`, before the fetch: a dead shard's fetch is retried
+with the `RetryPolicy`'s backoff and then masked out of the stacked
+validity (`_mask_shard`), so the result is the surviving shards' rows,
+typed ``"shard-fault"``.
+
 .. deprecated::
     Constructing `DistributedMatcher` directly is deprecated — open a
     `repro_torch.api.GraphSession` with ``backend="sharded"`` instead.
@@ -52,7 +58,8 @@ from repro_torch.core.query import QueryGraph
 from repro_torch.core.result import MatchResult, MatchStats
 from repro_torch.graphstore.cluster_graph import ClusterGraphIndex
 from repro_torch.graphstore.partition import PartitionedGraph
-from repro_torch.runtime.resilience import stage
+from repro_torch.runtime.chaos import ShardFaultError
+from repro_torch.runtime.resilience import DegradeReason, RetryPolicy, stage
 
 __all__ = ["DistributedMatcher"]
 
@@ -85,6 +92,7 @@ class DistributedMatcher(CachedSteps):
         device,
         cache: ExecutableCache | None = None,
         kernels: "str | Kernels | None" = None,
+        chaos=None,
     ):
         warn_direct_construction("DistributedMatcher")
         self.pg = pg
@@ -93,6 +101,11 @@ class DistributedMatcher(CachedSteps):
         # the kernel backend every per-shard step draws from; reassignable —
         # cached steps are keyed by (static spec, kernels.name)
         self.kernels = resolve_kernels(kernels, self.device)
+        # optional seeded fault injector (repro_torch.runtime.chaos),
+        # consulted at the host-side fetch and block boundaries
+        self.chaos = chaos
+        if chaos is not None:
+            self.kernels = chaos.wrap_kernels(self.kernels)
         self.cgi = ClusterGraphIndex.build(pg)
         # cumulative block joins run on the streaming path (one a block, for
         # every shard); lets callers assert early-stopped streams skip work
@@ -226,7 +239,7 @@ class DistributedMatcher(CachedSteps):
         query: QueryGraph,
         plan: QueryPlan | None = None,
         use_ring: bool = False,
-        retry_policy=None,  # accepted so the facade drives engines uniformly
+        retry_policy: RetryPolicy | None = None,
         **kw,
     ) -> MatchResult:
         t0 = time.perf_counter()
@@ -235,12 +248,16 @@ class DistributedMatcher(CachedSteps):
         with stage(stats, "explore"):
             all_cols, all_valids, overflow = self._explore(plan, stats)
         load, load_masks = self._load_masks(query, plan)
-        stats.shard_health = {k: "ok" for k in range(self.n_shards)}
         schemas = _schemas(plan)
         order = tuple(join_lib.select_join_order(list(schemas), stats.stwig_rows))
         ring_radii = self.ring_radii_for(load) if use_ring else None
         with stage(stats, "fetch"):
+            all_valids, fault = self._chaos_gate(
+                stats, retry_policy or RetryPolicy(), all_valids, plan.head
+            )
             fetched = self._fetch(all_cols, all_valids, load_masks, plan.head, ring_radii)
+        if self.chaos is not None and self.chaos.forced_overflow():
+            overflow = True
         with stage(stats, "join"):
             accs = [
                 self._join_shard(k, all_cols, all_valids, fetched, schemas, order, plan)
@@ -256,10 +273,12 @@ class DistributedMatcher(CachedSteps):
         stats.join_order = [schemas[i].qnodes for i in order]
         stats.cache_hits = self.cache.hits
         stats.cache_misses = self.cache.misses
+        if fault:
+            stats.degrade_reason = DegradeReason.SHARD_FAULT.value
         return MatchResult(
             rows=rows_old,
             n_matches=int(rows_old.shape[0]),
-            complete=not overflow,
+            complete=not (overflow or fault),
             stats=stats,
         )
 
@@ -269,18 +288,21 @@ class DistributedMatcher(CachedSteps):
         query: QueryGraph,
         plan: QueryPlan | None = None,
         use_ring: bool = False,
-        retry_policy=None,
+        retry_policy: RetryPolicy | None = None,
         **kw,
     ) -> "_ShardedStreamState":
         """The run-once half of a streamed query: exploration, load sets and
         the fetch of every non-head table happen here, and the fetched
-        tables stay on the device for every block."""
+        tables stay on the device for every block. A shard fault at the
+        fetch degrades every page of the stream: the stats carry the
+        shard-fault reason and `OpenStream.blocks` marks pages ``complete=False``."""
         plan = plan or self.plan(query, **kw)
         stats = MatchStats(backend="sharded", n_shards=self.n_shards)
         with stage(stats, "explore"):
             all_cols, all_valids, overflow = self._explore(plan, stats)
+        if self.chaos is not None and self.chaos.forced_overflow():
+            overflow = True
         load, load_masks = self._load_masks(query, plan)
-        stats.shard_health = {k: "ok" for k in range(self.n_shards)}
         schemas = _schemas(plan)
         # blocks are cut on the head table, so the join order must start
         # there (disjointness across shards comes from head locality)
@@ -289,7 +311,12 @@ class DistributedMatcher(CachedSteps):
         )
         ring_radii = self.ring_radii_for(load) if use_ring else None
         with stage(stats, "fetch"):
+            all_valids, fault = self._chaos_gate(
+                stats, retry_policy or RetryPolicy(), all_valids, plan.head
+            )
             fetched = self._fetch(all_cols, all_valids, load_masks, plan.head, ring_radii)
+        if fault:
+            stats.degrade_reason = DegradeReason.SHARD_FAULT.value
         stats.join_order = [schemas[i].qnodes for i in order]
         head_valid = all_valids[plan.head]
         S, cap = head_valid.shape
@@ -317,6 +344,10 @@ class DistributedMatcher(CachedSteps):
         per-shard results."""
         if not state.head_valid_any[lo : lo + block_rows].any():
             return np.zeros((0, state.plan.n_qnodes), np.int64), False
+        if self.chaos is not None:
+            d = self.chaos.block_delay()
+            if d > 0:
+                time.sleep(d)
         self.join_block_calls += 1
         state.stats.join_blocks += 1
         plan, head = state.plan, state.plan.head
@@ -338,6 +369,78 @@ class DistributedMatcher(CachedSteps):
                 max_matches=0,
             )
         return rows, bool(torch.stack([a.overflow for a, _ in accs]).any())
+
+    # -------------------------------------------------------- fault handling
+    def _chaos_gate(
+        self, stats: MatchStats, policy: RetryPolicy, all_valids, head_pos: int
+    ):
+        """The host-side fetch boundary: consult the chaos injector (when
+        attached), retry dead fetches with the policy's jittered backoff,
+        and degrade to the surviving shards' rows by masking the faulty
+        shard's stacked validity. Returns (all_valids, faulted). Runs
+        before the fetch: a memory cloud loses a shard at fetch time."""
+        stats.shard_health = {k: "ok" for k in range(self.n_shards)}
+        chaos = self.chaos
+        if chaos is None:
+            return all_valids, False
+        fault = False
+        ev = chaos.fetch_delay()
+        if ev is not None:
+            k, d = ev
+            time.sleep(d)
+            stats.shard_health[k] = "slow"
+        attempt = 0
+        while True:
+            try:
+                chaos.try_fetch()
+                if attempt > 0:
+                    stats.shard_health[chaos.config.dead_shard] = "recovered"
+                break
+            except ShardFaultError as e:
+                if attempt >= policy.fetch_retries:
+                    all_valids = self._mask_shard(all_valids, e.shard)
+                    stats.shard_health[e.shard] = "dead"
+                    fault = True
+                    break
+                policy.sleep(attempt, policy.fetch_backoff_s)
+                attempt += 1
+                stats.fetch_retries += 1
+        tr = chaos.truncation()
+        if tr is not None:
+            k, keep = tr
+            all_valids = self._mask_shard(
+                all_valids, k, head_pos=head_pos, keep_frac=keep
+            )
+            if stats.shard_health.get(k) == "ok":
+                stats.shard_health[k] = "truncated"
+            fault = True
+        return all_valids, fault
+
+    @staticmethod
+    def _mask_shard(
+        all_valids,
+        shard: int,
+        head_pos: int | None = None,
+        keep_frac: float | None = None,
+    ) -> list:
+        """Invalidate (all of, or the tail of) one shard's rows in the
+        stacked ``(S, cap)`` validity tables, on the device and into new
+        tensors, so results built from the masked tables are a correct
+        subset of the true row set, never a wrong one. With ``keep_frac``
+        (the truncated-payload fault) the head table is left intact: it is
+        never fetched (Theorem 5), so a transfer can't truncate it."""
+        out = []
+        for i, v in enumerate(all_valids):
+            if keep_frac is not None and i == head_pos:
+                out.append(v)
+                continue
+            v = v.clone()
+            if keep_frac is None:
+                v[shard] = False
+            else:
+                v[shard, int(keep_frac * v.shape[1]):] = False
+            out.append(v)
+        return out
 
 
 @dataclasses.dataclass(eq=False)

@@ -167,6 +167,7 @@ class SubgraphMatcher(CachedSteps):
         device,
         cache: ExecutableCache | None = None,
         kernels: "str | Kernels | None" = None,
+        chaos=None,
     ):
         warn_direct_construction("SubgraphMatcher")
         if not 0 <= shard < pg.n_shards:
@@ -177,6 +178,13 @@ class SubgraphMatcher(CachedSteps):
         # the kernel backend every dense step draws from; reassignable at
         # any time — cached steps are keyed by (static spec, kernels.name)
         self.kernels = resolve_kernels(kernels, self.device)
+        # optional seeded fault injector (repro_torch.runtime.chaos). The
+        # local engine has no fetch, so only the per-block delay and forced
+        # overflow apply; the wrapped kernels' distinct name keeps chaos
+        # steps out of clean cache entries
+        self.chaos = chaos
+        if chaos is not None:
+            self.kernels = chaos.wrap_kernels(self.kernels)
         # cumulative per-block join chains run on the streaming path; lets
         # callers assert early-stopped streams skip work
         self.join_block_calls = 0
@@ -193,6 +201,8 @@ class SubgraphMatcher(CachedSteps):
         stats = MatchStats(backend="local")
         with stage(stats, "explore"):
             tables, schemas, explore_overflow = self._explore(plan, stats)
+        if self.chaos is not None and self.chaos.forced_overflow():
+            explore_overflow = True
         order = tuple(join_lib.select_join_order(schemas, stats.stwig_rows))
         # probe-side compaction: every block join re-probes the non-blocked
         # tables, and probe cost scales with their capacity, not their row
@@ -222,6 +232,10 @@ class SubgraphMatcher(CachedSteps):
         join chain and materialize the block's matches."""
         if not state.valid_host[lo : lo + block_rows].any():
             return np.zeros((0, state.plan.n_qnodes), np.int64), False
+        if self.chaos is not None:
+            d = self.chaos.block_delay()
+            if d > 0:
+                time.sleep(d)
         first = state.tables[state.order[0]]
         blk = join_lib.block_table(first, lo, block_rows)
         self.join_block_calls += 1
@@ -285,6 +299,8 @@ class SubgraphMatcher(CachedSteps):
         stats = MatchStats(backend="local")
         with stage(stats, "explore"):
             tables, schemas, overflow = self._explore(plan, stats)
+        if self.chaos is not None and self.chaos.forced_overflow():
+            overflow = True
 
         # ---- join phase ----------------------------------------------------
         with stage(stats, "join"):

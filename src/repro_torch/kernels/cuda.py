@@ -16,6 +16,11 @@ and sizes, then the CUDA stream, and returns ``cudaGetLastError()`` after
 its launch; `CudaKernel.__call__` passes PyTorch's current stream and
 raises if the code is not 0. ``launches`` counts the launches of that
 kernel and is changed nowhere else.
+
+Kernels may be launched from more than one thread (the query server's
+scheduler thread and the caller's): `load` and the binding of an entry
+point hold one lock, so a first launch from two threads at once builds and
+loads a library once.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -38,6 +44,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()  # held while a library is built, loaded or bound
 
 
 def _nvcc() -> str:
@@ -86,13 +93,17 @@ def build(*, ptxas_verbose: bool = False) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library of ``csrc/<name>.cu``, building it if needed.
+    Thread-safe: a second caller waits for the first one's build."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build()
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                path = _lib_path(name)
+                if not path.exists():
+                    build()
+                lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
 
 
@@ -111,10 +122,7 @@ class CudaKernel:
 
     def __call__(self, *args) -> None:
         if self._fn is None:
-            fn = getattr(load(self.source), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._bind()
         # PyTorch's current stream, read anew at each call, so that a launch
         # lands on the stream of torch.cuda.stream(s) or of a graph capture.
         # The raw accessor gives torch.cuda.current_stream().cuda_stream
@@ -127,6 +135,15 @@ class CudaKernel:
                 f"CUDA kernel {self.symbol} failed to launch: error {err}"
             )
         self.launches += 1
+
+    def _bind(self) -> None:
+        lib = load(self.source)
+        with _LOAD_LOCK:
+            if self._fn is None:
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
 
 
 def launch_counts() -> dict[str, int]:

@@ -10,6 +10,8 @@ query path calls:
   * `RetryPolicy` — seeded jittered backoff between retries and a
     cap-growth ceiling, so escalation stops *before* the doubled plan
     exceeds the memory ceiling rather than after an out-of-memory error;
+    and the sharded engine's fetch-retry budget (`repro_torch.runtime.chaos`
+    injects the shard faults it recovers from);
   * `adaptive_run` — the one retry loop the engine and
     `CompiledQuery.run` share; `stage` — per-stage wall times.
 
@@ -18,7 +20,8 @@ The JAX package prices cap growth by tracing the join with
 counts the bytes of the escalated join's buffers analytically instead
 (`join_cost_bytes`); the estimate grows with ``join_rows_cap ×
 join_dup_cap``. The ceiling is `MEMORY_CEILING_BYTES`, the value the JAX
-package keeps in ``analysis/budgets.json``.
+package keeps in ``analysis/budgets.json``; `retry_ceiling_bytes` reads a
+budgets dict of that file's shape when a caller has one.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ __all__ = [
     "grow_caps",
     "join_cost_bytes",
     "plan_caps_bytes",
+    "retry_ceiling_bytes",
 ]
 
 # caps that adaptive escalation grows (and that MatchStats.final_caps
@@ -118,6 +122,14 @@ def plan_caps_bytes(caps: dict) -> float:
     )
 
 
+def retry_ceiling_bytes(budgets: dict | None = None) -> float:
+    """The cap-growth byte ceiling: ``budgets["retry"]["memory_ceiling_bytes"]``
+    of a dict shaped like the JAX package's ``analysis/budgets.json``, or
+    `MEMORY_CEILING_BYTES` when no dict (or no such entry) is given."""
+    retry = budgets.get("retry", {}) if isinstance(budgets, dict) else {}
+    return float(retry.get("memory_ceiling_bytes", MEMORY_CEILING_BYTES))
+
+
 # ------------------------------------------------------------------ guard
 
 
@@ -173,17 +185,20 @@ class QueryGuard:
 
 @dataclasses.dataclass
 class RetryPolicy:
-    """How adaptive escalation retries.
+    """How adaptive escalation and fetch recovery retry.
 
     ``backoff(i)`` grows geometrically with deterministic, seeded jitter
     (two policies with equal seeds back off identically — chaos tests are
     reproducible). ``backoff_s`` defaults to 0 so plain adaptive runs keep
-    their no-sleep behaviour. ``ceiling_bytes=None`` means
-    `MEMORY_CEILING_BYTES`.
+    their no-sleep behaviour; the sharded engine's fetch-retry loop uses
+    ``fetch_backoff_s`` and gives up after ``fetch_retries`` retries.
+    ``ceiling_bytes=None`` means `retry_ceiling_bytes()`.
     """
 
     max_retries: int = 6
     backoff_s: float = 0.0
+    fetch_retries: int = 3
+    fetch_backoff_s: float = 0.01
     jitter: float = 0.5
     seed: int = 0
     ceiling_bytes: float | None = None
@@ -194,7 +209,7 @@ class RetryPolicy:
     def ceiling(self) -> float:
         if self.ceiling_bytes is not None:
             return float(self.ceiling_bytes)
-        return MEMORY_CEILING_BYTES
+        return retry_ceiling_bytes()
 
     def backoff(self, attempt: int, base_s: float | None = None) -> float:
         base = self.backoff_s if base_s is None else base_s

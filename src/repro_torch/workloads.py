@@ -73,3 +73,27 @@ def random_query(
     return QueryGraph.build(
         rng.integers(0, n_labels, n_nodes).astype(int).tolist(), edges
     )
+
+
+def mixed_workload(
+    g: Graph,
+    n_queries: int,
+    *,
+    n_labels: int,
+    rng: np.random.Generator,
+    min_nodes: int = 4,
+    max_nodes: int = 8,
+) -> list[QueryGraph]:
+    """The serving mix: alternate DFS (always matchable) and random (often
+    empty) queries. The same ``rng`` state draws the JAX package's list."""
+    out: list[QueryGraph] = []
+    for i in range(n_queries):
+        nq = int(rng.integers(min_nodes, max_nodes))
+        q = (
+            dfs_query(g, rng, nq)
+            if i % 2 == 0
+            else random_query(nq, 8, n_labels, rng)
+        )
+        if q is not None:
+            out.append(q)
+    return out

@@ -366,6 +366,88 @@ def test_session_rows_equal_on_cpu_and_card(dev):
         assert len(pa) == len(pb) and all(np.array_equal(x, y) for x, y in zip(pa, pb))
 
 
+def test_served_workload_on_card_equals_the_cpu(dev):
+    """The continuous-batching server at its defaults (8 in flight, blocks
+    of 512 rows, first 1,024 matches) on a mixed workload: per query the
+    card's status, rows (in order) and counters are the CPU's, through the
+    matcher's kernels, and no query fails."""
+    from repro_torch.api import GraphSession
+    from repro_torch.graphstore import generators
+    from repro_torch.workloads import mixed_workload
+
+    g = generators.rmat(1500, 6000, 12, seed=3)
+    qs = mixed_workload(g, 10, n_labels=12, rng=np.random.default_rng(0))
+    s_cpu, s_gpu = GraphSession.open(g, device="cpu"), GraphSession.open(g, device=dev)
+    want_server = s_cpu.serve()
+    want = want_server.serve(qs)
+    cuda.reset_launch_counts()
+    got_server = s_gpu.serve()
+    got = got_server.serve(qs)
+    counts = cuda.launch_counts()
+    for op in ("stwig_expand", "bitset_build", "bitset_lookup", "bitset_pack"):
+        assert counts[op] > 0, op
+    assert got_server.stats.as_dict() == want_server.stats.as_dict()
+    assert got_server.stats.failed == 0 and got_server.stats.global_degradations == 0
+    for a, b in zip(got, want):
+        assert (a.status, a.error, a.stats.degrade_reason) == (b.status, b.error,
+                                                               b.stats.degrade_reason)
+        assert np.array_equal(a.rows, b.rows)
+    # the scheduler thread launches the same kernels and gives the same rows
+    with s_gpu.serve() as server:
+        tickets = [server.submit(q) for q in qs]
+        threaded = [t.result(timeout=600) for t in tickets]
+    assert all(np.array_equal(a.rows, b.rows) for a, b in zip(threaded, got))
+
+
+def test_chaos_session_on_card_runs_the_matcher_kernels(dev, monkeypatch):
+    """``chaos=`` on the card wraps the CUDA kernels (``"chaos(cuda)"``):
+    the matcher's kernels launch, and masks reach the host through
+    `CudaKernels.mask_to_host`, not the plain version."""
+    from repro_torch.api import GraphSession
+    from repro_torch.core.backend import CudaKernels
+    from repro_torch.graphstore import generators
+    from repro_torch.graphstore.partition import PartitionedGraph
+    from repro_torch.runtime import ChaosConfig, ChaosInjector, RetryPolicy
+    from repro_torch.workloads import dfs_query, path_query
+
+    unpacked = []
+    original = CudaKernels.mask_to_host
+
+    def counted(self, mask):
+        unpacked.append(mask.device.type)
+        return original(self, mask)
+
+    monkeypatch.setattr(CudaKernels, "mask_to_host", counted)
+    g = generators.rmat(1500, 6000, 12, seed=3)
+    rng = np.random.default_rng(2)
+    qs = []
+    while len(qs) < 3:
+        q = dfs_query(g, rng, 4) if len(qs) < 2 else path_query(g, rng, 4)
+        if q is not None:
+            qs.append(q)
+    for target, cfg in ((g, ChaosConfig(seed=0, slow_shard=0, slow_delay_s=0.001)),
+                        (PartitionedGraph.build(g, 4), ChaosConfig(seed=0, dead_shard=1))):
+        inj = ChaosInjector(cfg)
+        s = GraphSession.open(target, device=dev, chaos=inj)
+        clean = GraphSession.open(target, device=dev)
+        assert s.kernels.name == "chaos(cuda)"
+        wants = [clean.run(q, max_matches=0) for q in qs]
+        unpacked.clear()
+        cuda.reset_launch_counts()
+        for q, want in zip(qs, wants):
+            res = s.run(q, max_matches=0, retry_policy=RetryPolicy(fetch_backoff_s=0.0))
+            assert set(map(tuple, res.rows.tolist())) <= set(map(tuple, want.rows.tolist()))
+            if s.backend == "local":
+                assert np.array_equal(res.rows, want.rows)
+            else:
+                assert res.stats.shard_health[1] == "dead" and not res.complete
+        counts = cuda.launch_counts()
+        for op in ("stwig_expand", "bitset_build", "bitset_lookup", "bitset_pack"):
+            assert counts[op] > 0, (s.backend, op)
+        assert set(unpacked) == {dev.type}
+        assert len(unpacked) == inj.op_calls["mask_to_host"] > 0
+
+
 @pytest.mark.parametrize("graph,S,mode,use_ring", [
     (("rmat", 1500, 6000, 12, 3), 4, "hash", False),
     (("ring_of_cliques", 60, 6, 4, 2), 8, "range", True),
@@ -713,7 +795,8 @@ def test_lm_on_card_matches_the_cpu(dev):
     step within ``1e-4 ·`` each row's max|cpu|, TF32 off; the prefill
     launches one kernel a layer, on the split-TF32 route (head dims 32, 16,
     16 and MLA's 24 and 16). Each config's worst ratio is printed (``-s``)
-    whether it passes or not."""
+    whether it passes or not, with whether a second prefill on each side
+    gave the same bits (the failure message says it too)."""
     import dataclasses
 
     from repro_torch.configs import deepseek_v3_671b, gemma_2b, mixtral_8x22b, qwen2_72b
@@ -737,6 +820,9 @@ def test_lm_on_card_matches_the_cpu(dev):
         assert {r: cuda.launch_counts()[k.symbol] - before[r] for r, k in fa.ROUTES.items()} == {
             r: cfg.n_layers if r == "tf32" else 0 for r in fa.ROUTES}
         want, c_cpu = f_cpu["prefill"](tokens)
+        # each side twice: a failure then says which side moved
+        cpu_again = torch.equal(want, f_cpu["prefill"](tokens)[0])
+        card_again = torch.equal(got, f_gpu["prefill"](tokens)[0])
         scale = want.abs().amax(dim=-1, keepdim=True)
         prefill_ratio = ((got.cpu() - want).abs() / scale).max().item()
         tok = want[:, -1:].argmax(-1)
@@ -745,10 +831,12 @@ def test_lm_on_card_matches_the_cpu(dev):
         want_d, _ = f_cpu["decode"](c_cpu, tok, 129)
         scale_d = want_d.abs().amax(dim=-1, keepdim=True)
         decode_ratio = ((got_d.cpu() - want_d).abs() / scale_d).max().item()
+        again = (f"a second prefill gave the same bits: on the CPU {cpu_again}, "
+                 f"on the card {card_again}")
         print(f"[lm on card vs cpu] {cfg.name}: worst |card - cpu| / max|cpu| of its row: "
-              f"prefill {prefill_ratio:.3e}, decode {decode_ratio:.3e}")
+              f"prefill {prefill_ratio:.3e}, decode {decode_ratio:.3e}; {again}")
         assert ((got.cpu() - want).abs() <= 1e-4 * scale).all(), (
-            f"{cfg.name}: worst |card - cpu| / max|cpu| of its row {prefill_ratio}")
+            f"{cfg.name}: worst |card - cpu| / max|cpu| of its row {prefill_ratio}; {again}")
         assert ((got_d.cpu() - want_d).abs() <= 1e-4 * scale_d).all(), (
             f"{cfg.name}: decode {decode_ratio}")
 

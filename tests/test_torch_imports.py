@@ -51,7 +51,9 @@ def test_the_port_has_its_modules():
                 "models/transformer.py", "extras/flash_attention/ref.py",
                 "extras/flash_attention/flash_attention.py",
                 "extras/flash_attention/ops.py", "core/dist.py", "core/collectives.py",
-                "graphstore/cluster_graph.py", "configs/stwig.py"):
+                "graphstore/cluster_graph.py", "configs/stwig.py", "workloads.py",
+                "runtime/chaos.py", "runtime/server.py", "api/serve.py",
+                "launch/serve.py"):
         assert f"src/repro_torch/{mod}" in names
     for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu",
                 "segment_mp.cu", "join_probe.cu", "probe.cuh", "flash_attention.cu",
