@@ -237,6 +237,30 @@ result lines are printed only when every phase passed):
      operations the tensor-core route executes with head dims padded to
      256) and SDPA's; the bf16 decode logits against a teacher-forced
      prefill's at the same position.
+ 13. train — `make_train_step` (AdamW at its defaults, warm-up 1: step 0
+     at lr 0 must move no parameter, the later steps every one), each
+     step's launch counts zeroed before and read after it: gemma-2b at
+     its published widths and full depth (18 layers, bf16, remat a layer,
+     random weights; 4 steps of 2 × 2,048 ``lm_batch`` tokens, `LM_TRAIN`):
+     ``flash_attention_tc`` 36 a step (18 in the forward, 18 in remat's
+     recomputation; the backward's vjp is the plain version's), the other
+     routes 0; its step 0 held to the same step with ``kernels="torch"``
+     (the loss at full depth, the gradient a layer at a time on shared
+     inputs, `STEP0_TOL`); step ms, tokens/s, peak memory, a step split
+     into forward, backward (and the plain attention vjp's share of it)
+     and optimizer by CUDA events, one traced step. xDeepFM at its
+     published widths and train batch (65,536, `RECSYS_TRAIN`, 3 steps):
+     ``cin_layer`` 9 a step (3 forward, 6 backward). GatedGCN at its
+     published widths on `[gnn]`'s ``minibatch_lg`` batch (3 steps):
+     ``segment_mp`` 32 a step. Each autograd Function at its path's shapes
+     against autograd of the plain version on the card (`function_check`):
+     attention at gemma's layer-0 shape in bf16 and fp32, exact (the same
+     vjp); ``cin_layer`` at xDeepFM's layer 1 and a 200-wide layer, within
+     1e-4 of each row's scale; ``segment_mp`` on GatedGCN's first
+     aggregation, exact. Then `TrainSupervisor` at gemma-2b's smoke config:
+     preempted at step 3 of 6 and restarted from its step-2 checkpoint
+     (under ``build/``), bit-identical to an uninterrupted run. The
+     full-width runs write no checkpoint.
 
 Before the last line it prints the fourteen kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -281,6 +305,20 @@ MOE_MLA_SERVE = {"deepseek-v3-671b": dict(n_layers=5, batch=2, seq=2048, decode=
 # [small]'s 4 shards on the CPU: every shard probes the fetched tables of all
 # four, so the tables are kept small there (on the card too, for the same rows)
 SMALL_SHARDED_CAPS = dict(emission_budget=1 << 12, join_rows_cap=1 << 14)
+# gemma-2b trained at its published widths and full depth: 4 steps of 2 x 2,048
+# lm_batch tokens; xDeepFM at its train_batch (65,536, the JAX package's
+# extras/shapes.py); GatedGCN on [gnn]'s minibatch_lg batch
+LM_TRAIN = dict(batch=2, seq=2048, steps=4)
+RECSYS_TRAIN = dict(batch=65536, steps=3)
+GNN_TRAIN = dict(steps=3)
+# gemma-2b's step 0 with kernels="cuda" against kernels="torch" (relative): the
+# two differ only in the forward attention's rounding (bf16 P on the tensor
+# cores), which the random init amplifies ~30x a layer ([lm]). The loss, a mean
+# over 4,094 tokens, is held at full depth (1.2e-3 apart on the card); the
+# gradient is held a layer at a time on shared inputs (1.0e-4 and 7.9e-3 apart:
+# the input gradient moves by about one bf16 ulp, 7.8e-3). Its norm at full
+# depth differs ~10x between the two roundings, so that is printed, not held
+STEP0_TOL = dict(loss=1e-2, layer_grad_norm=1e-3, layer_input_grad=3e-2)
 
 
 def log(msg: str) -> None:
@@ -1847,7 +1885,7 @@ def recording_segment_mp(n_keep: int):
     return Recording()
 
 
-def phase_gnn(dev) -> list[dict]:
+def phase_gnn(dev) -> tuple[list[dict], object]:
     import dataclasses
 
     from repro_torch.configs import egnn, gatedgcn, gin_tu, meshgraphnet
@@ -1993,7 +2031,7 @@ def phase_gnn(dev) -> list[dict]:
         del calls, args, msg
     del full, mb, paths, outs
     torch.cuda.empty_cache()
-    return rows
+    return rows, mb_host
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2814,6 +2852,430 @@ def phase_moe_mla(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 13
+def step_ms(fn) -> float:
+    """CUDA-event ms of one call of ``fn``."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+class VjpTimer:
+    """Wraps an autograd Function's ``backward`` with CUDA events: the
+    device time of its vector-Jacobian products in a backward."""
+
+    def __init__(self, fn_cls):
+        self.cls, self.orig, self.spans = fn_cls, fn_cls.backward, []
+
+    def __enter__(self):
+        orig, spans = self.orig, self.spans
+
+        def backward(ctx, g):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(ctx, g)
+            b.record()
+            spans.append((a, b))
+            return out
+
+        self.cls.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.orig)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def split_step(cfg, model, state, batch, step, opt_cfg, total, fn_cls):
+    """One training step written out as `make_train_step` (warm-up 1) runs
+    it, timed by CUDA events around the forward (the loss), the backward
+    and the optimizer: ``(state, (fwd, bwd, opt) ms, ms of the autograd
+    Function ``fn_cls``'s backward)``."""
+    from repro_torch import optim
+    from repro_torch.train.step import batch_on, grads_of, loss_for
+
+    params = dict(model.named_parameters())
+    b = batch_on(batch, model.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.zero_grad(set_to_none=True)
+    with VjpTimer(fn_cls) as vjp:
+        ev[0].record()
+        loss = loss_for(cfg, b)(model)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+    grads = grads_of(params)
+    lr_scale = optim.cosine_warmup(step, warmup=1, total=total).to(model.device)
+    state, _ = optim.update(opt_cfg, grads, state, params, lr_scale)
+    ev[3].record()
+    del grads, loss
+    model.zero_grad(set_to_none=True)
+    ev[3].synchronize()
+    return state, tuple(ev[i].elapsed_time(ev[i + 1]) for i in range(3)), vjp.ms()
+
+
+def grad_scale(want: torch.Tensor) -> torch.Tensor:
+    """Each row's (last axis) largest |value|, floored at the median row's."""
+    r = want.abs().amax(dim=-1, keepdim=True)
+    return r.clamp_min(r.median())
+
+
+def function_check(what, apply, plain, inputs, grad_out, tol, chunks=1) -> str:
+    """``apply``'s (an autograd Function's) gradients against autograd of
+    ``plain`` on the same inputs and output gradient, each element within
+    ``tol`` × its row's scale (`grad_scale`). ``plain`` runs over
+    ``chunks`` slices of the batch dim of the first two inputs and of
+    ``grad_out`` (a third input's gradient summed over them), so that its
+    materialised intermediates fit. Returns the line to print."""
+    from repro_torch.kernels import cuda
+
+    xs = [t.detach().clone().requires_grad_() for t in inputs]
+    before = cuda.launch_counts()
+    t_fn = step_ms(lambda: apply(*xs).backward(grad_out))
+    launched = {k: v - before[k] for k, v in cuda.launch_counts().items() if v > before[k]}
+    ys = [t.detach().clone().requires_grad_() for t in inputs]
+    B = inputs[0].shape[0]
+    per = -(-B // chunks)
+    t_plain = 0.0
+    for i in range(0, B, per):
+        def run(i=i):
+            parts = [y[i:i + per] if j < 2 else y for j, y in enumerate(ys)]
+            plain(*parts).backward(grad_out[i:i + per] if chunks > 1 else grad_out)
+        t_plain += step_ms(run)
+    errs = {}
+    for j, (x, y) in enumerate(zip(xs, ys)):
+        errs[f"d{j}"] = scaled_err(x.grad, y.grad, grad_scale(y.grad),
+                                   f"[train] {what}: gradient {j}", tol)[0]
+    del xs, ys
+    return (f"{what}: Function forward+backward {t_fn:.4f} ms (plain autograd {t_plain:.4f} "
+            f"ms, {chunks} chunk(s)), launches {launched}; largest |Function - plain| / row "
+            f"scale { {k: f'{v:.3e}' for k, v in errs.items()} } (tol {tol:g})")
+
+
+def train_steps(what, cfg, model, batch_fn, n_steps, opt_cfg, kernels) -> dict:
+    """``n_steps`` of `make_train_step` (warm-up 1: step 0 moves nothing)
+    on ``model``, each step's launches counted from zero; fails on a count
+    of a kernel other than ``kernels[name]``, a non-finite loss, a
+    parameter moved by step 0 or one left as it was by the later steps."""
+    from repro_torch import optim
+    from repro_torch.kernels import cuda
+    from repro_torch.train import make_train_step
+
+    params = dict(model.named_parameters())
+    state = optim.init(opt_cfg, params)
+    step = make_train_step(cfg, opt_cfg, total_steps=n_steps, warmup=1)
+    before = {n: p.detach().clone() for n, p in params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(times=[], metrics=[], counts=[])
+    for s in range(n_steps):
+        batch = batch_fn(s)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        box = []
+        out["times"].append(step_ms(lambda: box.append(step(model, state, batch, s))))
+        state, metrics = box[0]
+        counts = cuda.launch_counts()
+        out["counts"].append({k: counts[k] for k in kernels})
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        if not np.isfinite(out["metrics"][-1]["loss"]):
+            fail(f"[train] {what}: loss {out['metrics'][-1]['loss']} at step {s}")
+        if out["counts"][-1] != kernels:
+            fail(f"[train] {what}: launches {out['counts'][-1]} in step {s}, expected {kernels}")
+        if s == 0:
+            moved = [n for n, p in params.items() if not torch.equal(p, before[n])]
+            if moved:
+                fail(f"[train] {what}: step 0 (lr 0) moved {moved[:4]}")
+    still = [n for n, p in params.items() if torch.equal(p, before[n])]
+    if still:
+        fail(f"[train] {what}: steps 1-{n_steps - 1} left {len(still)} parameters as they "
+             f"were: {still[:4]}")
+    del before
+    out.update(state=state, step=step, peak=torch.cuda.max_memory_allocated() / 1e9,
+               median=statistics.median(out["times"][1:]))
+    return out
+
+
+def resume_check(dev) -> str:
+    """The supervisor at gemma-2b's smoke config on the card: a
+    `SimulatedPreemption` at step 3 of 6 and a restart from the latest
+    checkpoint (step 2) must give the state of an uninterrupted run, bit for
+    bit. Checkpoints go under ``build/``."""
+    import shutil
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten_with_paths
+    from repro_torch.configs import gemma_2b
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.runtime import SimulatedPreemption, TrainSupervisor
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import supervised
+
+    cfg = gemma_2b.smoke()
+    root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(sub, fail_at=None):
+        model = Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(3),
+                            device=dev)
+        opt = optim.AdamWConfig(quantize_moments=True)
+        step_fn, params = supervised(model, make_train_step(cfg, opt, total_steps=6, warmup=1))
+        sup = TrainSupervisor(Checkpointer(root / sub, keep=2), ckpt_every=2,
+                              fail_at=dict(fail_at or {}))
+        return sup.run(state=(params, optim.init(opt, params)), step_fn=step_fn,
+                       batch_fn=lambda s: lm_batch(cfg, 4, 64, seed=0, step=s), n_steps=6)
+
+    want, hist = run("whole")
+    try:
+        run("cut", {3: SimulatedPreemption})
+        fail("[train] resume: the injected preemption did not stop the run")
+    except SimulatedPreemption:
+        pass
+    got, hist2 = run("cut")
+    if [h["step"] for h in hist2] != [2, 3, 4, 5]:
+        fail(f"[train] resume: resumed at {[h['step'] for h in hist2]}, not [2, 3, 4, 5]")
+    a, b = flatten_with_paths(want), flatten_with_paths(got)
+    differ = [n for (n, x), (_, y) in zip(a, b) if not torch.equal(x, y)]
+    if differ or [h["loss"] for h in hist2] != [h["loss"] for h in hist[2:]]:
+        fail(f"[train] resume: {len(differ)} of {len(a)} leaves differ from the uninterrupted "
+             f"run ({differ[:4]}), losses {[h['loss'] for h in hist2]} vs "
+             f"{[h['loss'] for h in hist[2:]]}")
+    shutil.rmtree(root, ignore_errors=True)
+    losses = [round(h["loss"], 6) for h in hist2]
+    return (f"resume: {cfg.name} (fp32, int8 moments) preempted at step 3 of 6, restarted from "
+            f"step 2: all {len(a)} leaves (parameters, step, m, v) bit-identical to the "
+            f"uninterrupted run, losses of steps 2-5 {losses} equal")
+
+
+def layer_grad_check(model, tokens) -> str:
+    """gemma-2b's step-0 gradient a layer at a time, kernels="cuda" against
+    kernels="torch": each layer's `train_layer` on the plain path's input to
+    it, backward from one shared seeded output gradient; held: the norm of
+    the layer's parameter gradients and the input gradient (relative to its
+    max|plain|) within `STEP0_TOL`."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    g = torch.Generator(device=tokens.device).manual_seed(5)
+    params = [p for n, p in model.named_parameters() if p.shape[:1] == (cfg.n_layers,)]
+    worst = dict(layer_grad_norm=0.0, layer_input_grad=0.0)
+    with torch.no_grad():
+        x = model.embed_tokens(tokens)
+    for l in range(cfg.n_layers):
+        go = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+        got = {}
+        for name in ("cuda", "torch"):
+            model.set_kernels(name)
+            xx = x.detach().requires_grad_()
+            out, _ = model.train_layer(l, xx, positions)
+            out.backward(go)
+            norm = torch.sqrt(sum(p.grad[l].float().square().sum() for p in params))
+            got[name] = (float(norm), xx.grad.float())
+            model.zero_grad(set_to_none=True)
+        (na, ga), (nb, gb) = got["cuda"], got["torch"]
+        rel = dict(layer_grad_norm=abs(na - nb) / nb,
+                   layer_input_grad=float((ga - gb).abs().max() / gb.abs().max()))
+        for k, v in rel.items():
+            if not v <= STEP0_TOL[k]:
+                fail(f"[train] gemma-2b step 0, layer {l}: {k} cuda vs torch rel {v:.3e} > "
+                     f"{STEP0_TOL[k]:g}")
+            worst[k] = max(worst[k], v)
+        with torch.no_grad():
+            x = model.train_layer(l, x, positions)[0]  # the plain path's input to l + 1
+    model.set_kernels("cuda")
+    return (f"{cfg.n_layers} layers held one at a time on the plain path's inputs: largest "
+            f"rel |cuda - torch| of a layer's parameter-gradient norm "
+            f"{worst['layer_grad_norm']:.3e} (tol {STEP0_TOL['layer_grad_norm']:g}), of its "
+            f"input gradient (max-abs) {worst['layer_input_grad']:.3e} (tol "
+            f"{STEP0_TOL['layer_input_grad']:g})")
+
+
+def phase_train(dev, mb_host) -> None:
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs import gatedgcn, gemma_2b, xdeepfm
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.pipeline import lm_batch, recsys_batch
+    from repro_torch.extras.flash_attention import flash_attention as fa
+    from repro_torch.extras.flash_attention import ref as fa_ref
+    from repro_torch.extras.segment_mp import ref as seg_ref
+    from repro_torch.extras.segment_mp import segment_mp as smp
+    from repro_torch.kernels.cin import cin
+    from repro_torch.kernels.cin import ref as cin_ref
+    from repro_torch.models import schema
+    from repro_torch.models.gnn import GNN, batch_to
+    from repro_torch.models.recsys import XDeepFM
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.step import batch_on, loss_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    # ---- gemma-2b at its published widths and full depth ------------------
+    cfg = gemma_2b.CONFIG
+    model = schema.trainable(Transformer(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 2_506_172_416 or model.kernels.name != "cuda":
+        fail(f"[train] gemma-2b: {n_params} parameters on kernels {model.kernels.name!r}")
+    B, S, n_steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    batch_fn = lambda s: lm_batch(cfg, B, S, seed=0, step=s)  # noqa: E731
+    opt_cfg = optim.AdamWConfig()
+    # step 0's loss and gradient norm with the plain versions (nothing updated)
+    model.set_kernels("torch")
+    loss = loss_for(cfg, batch_on(batch_fn(0), dev))(model)
+    loss.backward()
+    plain0 = dict(loss=float(loss.detach()), grad_norm=float(optim.global_norm(
+        {n: p.grad for n, p in model.named_parameters()})))
+    del loss
+    model.zero_grad(set_to_none=True)
+    model.set_kernels("cuda")
+    torch.cuda.empty_cache()
+    r = train_steps("gemma-2b", cfg, model, batch_fn, n_steps, opt_cfg,
+                    {fa.ROUTES[k].symbol: 2 * cfg.n_layers * (k == "tc") for k in fa.ROUTES})
+    rel0 = {k: abs(r["metrics"][0][k] - plain0[k]) / abs(plain0[k]) for k in plain0}
+    if not rel0["loss"] <= STEP0_TOL["loss"]:
+        fail(f"[train] gemma-2b step 0 loss: kernels='cuda' {r['metrics'][0]['loss']} vs "
+             f"'torch' {plain0['loss']}, rel {rel0['loss']:.3e} > {STEP0_TOL['loss']:g}")
+    log(f"[train] gemma-2b ({n_params} parameters, bf16, remat {cfg.remat!r}, AdamW at its "
+        f"defaults, fp32 moments), {n_steps} steps of {B} x {S} lm_batch tokens (warm-up 1: "
+        f"step 0 at lr 0 moved nothing; steps 1-{n_steps - 1} moved every parameter): losses "
+        f"{[round(m['loss'], 6) for m in r['metrics']]}, grad_norm "
+        f"{[round(m['grad_norm'], 6) for m in r['metrics']]}, lr "
+        f"{[m['lr'] for m in r['metrics']]}; launches a step {r['counts']} (18 in the "
+        f"forward, 18 in remat's recomputation; the backward's vjp is the plain version's)")
+    log(f"[train] gemma-2b step ms {[round(t, 4) for t in r['times']]}: median of steps 1-"
+        f"{n_steps - 1} {r['median']:.4f} ms, {B * S / r['median'] * 1e3:.0f} tokens/s; peak "
+        f"max_memory_allocated {r['peak']:.3f} GB")
+    log(f"[train] gemma-2b step 0, kernels='cuda' vs 'torch' (same weights and batch): loss "
+        f"{r['metrics'][0]['loss']:.6f} vs {plain0['loss']:.6f} (rel {rel0['loss']:.3e}, tol "
+        f"{STEP0_TOL['loss']:g}); grad_norm at full depth {r['metrics'][0]['grad_norm']:.6e} "
+        f"vs {plain0['grad_norm']:.6e} (rel {rel0['grad_norm']:.3e}, not held); "
+        f"{layer_grad_check(model, torch.as_tensor(batch_fn(0)['tokens'], device=dev))}")
+    state = r.pop("state")
+    state, split, vjp = split_step(cfg, model, state, batch_fn(n_steps), n_steps, opt_cfg,
+                                   n_steps + 1, fa.FlashAttention)
+    log(f"[train] gemma-2b one step split by CUDA events: forward (loss) {split[0]:.4f} ms, "
+        f"backward {split[1]:.4f} ms (FlashAttention's backward, the plain attention vjp, "
+        f"{vjp:.4f} ms of it, {100 * vjp / split[1]:.1f}%), optimizer {split[2]:.4f} ms")
+    step = r["step"]
+    box = [state]
+
+    def traced():
+        box[0] = step(model, box[0], batch_fn(0), n_steps)[0]
+
+    log(f"[train] gemma-2b one step traced: {profile_line(device_profile(traced, reps=1))}")
+    del model, state, box, r, step
+    torch.cuda.empty_cache()
+
+    # ---- each Function at its path's shapes, against the plain autograd ---
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((B, S, cfg.n_heads, cfg.d_head), generator=g, device=dev)
+    k = torch.randn((B, S, cfg.n_kv_heads, cfg.d_head), generator=g, device=dev)
+    v = torch.randn((B, S, cfg.n_kv_heads, cfg.d_head), generator=g, device=dev)
+    go = torch.randn((B, S, cfg.n_heads, cfg.d_head), generator=g, device=dev)
+    for dt, route in ((torch.bfloat16, "tc"), (torch.float32, "tf32")):
+        ins = [t.to(dt) for t in (q, k, v)]
+        line = routed(lambda: function_check(
+            f"flash_attention ({route}), gemma-2b layer-0 shape, {str(dt)[6:]} N(0,1)",
+            fa.FlashAttention.apply, fa_ref.mha_reference, ins, go.to(dt), 1e-6), route,
+            f"[train] flash_attention {route}")
+        log(f"[train] {line}")
+    del q, k, v, go, ins
+
+    # ---- xDeepFM at its published widths and train batch ------------------
+    rcfg = xdeepfm.CONFIG
+    rmodel = schema.trainable(XDeepFM(
+        rcfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev))
+    Bt, n_rsteps = RECSYS_TRAIN["batch"], RECSYS_TRAIN["steps"]
+    # a CIN layer's forward launch, and in the backward one for grad_xk and one
+    # for grad_x0 (the first layer's xk is x0 itself: both still launch)
+    per = 3 * len(rcfg.cin_layers)
+    r = train_steps("xdeepfm", rcfg, rmodel, lambda s: recsys_batch(rcfg, Bt, seed=0, step=s),
+                    n_rsteps, optim.AdamWConfig(), {cin.CIN.symbol: per})
+    log(f"[train] xdeepfm (39 x 1,000,000 x 10 tables, CIN 200-200-200, MLP 400-400), "
+        f"{n_rsteps} steps of recsys_batch at batch {Bt}: losses "
+        f"{[round(m['loss'], 6) for m in r['metrics']]}; cin_layer launches a step "
+        f"{r['counts']} (3 forward, 6 in the backward: grad_xk and grad_x0 are CIN layers); "
+        f"step ms {[round(t, 4) for t in r['times']]}, median of steps 1-{n_rsteps - 1} "
+        f"{r['median']:.4f} ms, {Bt / r['median'] * 1e3:.0f} rows/s; peak {r['peak']:.3f} GB")
+    _, split, vjp = split_step(rcfg, rmodel, r.pop("state"),
+                               recsys_batch(rcfg, Bt, seed=0, step=n_rsteps), n_rsteps,
+                               optim.AdamWConfig(), n_rsteps + 1, cin.CinLayer)
+    log(f"[train] xdeepfm one step split by CUDA events: forward (loss) {split[0]:.4f} ms, "
+        f"backward {split[1]:.4f} ms (CinLayer's backward: 6 kernel launches and grad_w "
+        f"in chunks, {vjp:.4f} ms of it, {100 * vjp / split[1]:.1f}%), optimizer "
+        f"{split[2]:.4f} ms")
+    del r
+    ids = torch.as_tensor(recsys_batch(rcfg, Bt, seed=0, step=0)["ids"], device=dev)
+    from repro_torch.models.recsys import embedding_bag
+
+    with torch.no_grad():
+        emb = embedding_bag(rmodel.tables, ids, torch.ones_like(ids, dtype=torch.bool))
+        x1 = cin.cin_layer(emb, emb, rmodel.cin["w0"])
+    del rmodel, ids
+    torch.cuda.empty_cache()
+    gg = torch.Generator(device=dev).manual_seed(2)
+    for what, xk, w in (("layer 1", emb, torch.randn((39 * 39, 200), generator=gg, device=dev)),
+                        ("a 200-wide layer", x1, torch.randn((200 * 39, 200), generator=gg,
+                                                             device=dev))):
+        go = torch.randn((Bt, 200, rcfg.embed_dim), generator=gg, device=dev)
+        log("[train] " + function_check(
+            f"cin_layer, xDeepFM {what} at batch {Bt} (xk {tuple(xk.shape)})",
+            cin.CinLayer.apply, cin_ref.cin_layer_reference, [xk, emb, w], go, 1e-4,
+            chunks=8))
+    del emb, x1, w, go
+    torch.cuda.empty_cache()
+
+    # ---- GatedGCN at its published widths on [gnn]'s minibatch_lg batch ---
+    gcfg = dataclasses.replace(gatedgcn.CONFIG, d_in=GNN_SHAPES["minibatch_lg"]["d"])
+    gmodel = schema.trainable(GNN(
+        gcfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev))
+    graph = batch_to(mb_host, dev)
+    n_gsteps = GNN_TRAIN["steps"]
+    r = train_steps("gatedgcn", gcfg, gmodel, lambda s: {"graph": graph}, n_gsteps,
+                    optim.AdamWConfig(), {smp.SEGMENT_MP.symbol: 2 * gcfg.n_layers})
+    log(f"[train] gatedgcn (16 layers, d 70, d_in 602), {n_gsteps} steps on minibatch_lg "
+        f"({graph.node_feat.shape[0]} node slots, {graph.edge_src.shape[0]} edge slots): losses "
+        f"{[round(m['loss'], 6) for m in r['metrics']]}; segment_mp launches a step "
+        f"{r['counts']} (2 a layer in the forward; the backward is a gather); step ms "
+        f"{[round(t, 4) for t in r['times']]}, median of steps 1-{n_gsteps - 1} "
+        f"{r['median']:.4f} ms; peak {r['peak']:.3f} GB")
+    _, split, vjp = split_step(gcfg, gmodel, r.pop("state"), {"graph": graph}, n_gsteps,
+                               optim.AdamWConfig(), n_gsteps + 1, smp.SegmentMP)
+    log(f"[train] gatedgcn one step split by CUDA events: forward (loss) {split[0]:.4f} ms, "
+        f"backward {split[1]:.4f} ms (SegmentMP's backward, a gather, {vjp:.4f} ms of it, "
+        f"{100 * vjp / split[1]:.1f}%), optimizer {split[2]:.4f} ms")
+    del r
+    rec = recording_segment_mp(1)
+    gmodel.set_kernels(rec)
+    with torch.no_grad():
+        gmodel(graph)
+    msg, dst, n = rec.args[0]
+    gmodel.set_kernels("cuda")
+    go = torch.randn((n, msg.shape[1]), generator=gg, device=dev)
+    log("[train] " + function_check(
+        f"segment_mp, GatedGCN's first aggregation ({tuple(msg.shape)} -> {n} nodes)",
+        lambda m: smp.SegmentMP.apply(m, dst, n), lambda m: seg_ref.segment_mp_reference(
+            m, dst, n), [msg], go, 0.0))
+    del gmodel, graph, msg, rec, go
+    torch.cuda.empty_cache()
+
+    # ---- the supervisor's resume, on the card ------------------------------
+    log(f"[train] {resume_check(dev)}")
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------- main
 def main() -> None:
     name, smi = phase_device()
@@ -2933,7 +3395,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 9: GNN inference on an ogbn-products-shaped graph ------------
-    kernel_rows += phase_gnn(dev)
+    rows, mb_host = phase_gnn(dev)
+    kernel_rows += rows
 
     # ---- phase 10: the join probe's two kernels on the query path's join ----
     kernel_rows += phase_probe(dev, probe_call)
@@ -2944,6 +3407,11 @@ def main() -> None:
 
     # ---- phase 12: deepseek-v3 and mixtral-8x22b, published widths, cut depth
     phase_moe_mla(dev)
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: training -- gemma-2b at full width, xDeepFM, GatedGCN ---
+    phase_train(dev, mb_host)
+    del mb_host
     if sorted(r["name"] for r in kernel_rows) != sorted(KERNEL_INFO):
         fail(f"the kernel line has {[r['name'] for r in kernel_rows]}, not {list(KERNEL_INFO)}")
 

@@ -238,14 +238,16 @@ class CudaKernels(Kernels):
             ka_sorted, a_keys, a_valid, kb, b_keys, b_valid, dup_cap=dup_cap
         )
 
+    # the three model ops go through their autograd Functions: the kernel
+    # forward, the plain version's vector-Jacobian product backward
     def cin_layer(self, xk, x0, w):
-        return _cin.cin_layer(xk, x0, w)
+        return _cin.CinLayer.apply(xk, x0, w)
 
     def segment_mp(self, messages, dst_sorted, n_nodes):
-        return _segment.segment_mp(messages, dst_sorted, n_nodes)
+        return _segment.SegmentMP.apply(messages, dst_sorted, n_nodes)
 
     def flash_attention(self, q, k, v, *, scale=None, window=None, softcap=None):
-        return _flash.flash_attention(q, k, v, scale=scale, window=window, softcap=softcap)
+        return _flash.FlashAttention.apply(q, k, v, scale, window, softcap)
 
 
 # ------------------------------------------------------------------ registry

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from repro_torch.extras.flash_attention import ref
-from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
+from repro_torch.kernels.cuda import CudaKernel, check, on_cpu, refuse_grad
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -91,6 +91,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal GQA attention ``(B, S, Nq, H) × (B, S, Nkv, H) × (B, S, Nkv,
     Hv) → (B, S, Nq, Hv)`` in q's dtype; ``scale`` defaults to ``H**-0.5``."""
+    refuse_grad("flash_attention", q, k, v)
     if on_cpu(q, k, v):
         return ref.mha_reference(q, k, v, scale=scale, window=window, softcap=softcap)
     return launch(q, k, v, scale=scale, window=window, softcap=softcap)
@@ -143,3 +144,26 @@ def launch(
                     H, Hv, float(scale), window or 0, float(softcap or 0.0),
                     int(q.dtype == torch.bfloat16), int(vec))
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` with gradients for q, k and v:
+    ``FlashAttention.apply(q, k, v, scale, window, softcap)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale=None, window=None, softcap=None):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(scale=scale, window=window, softcap=softcap)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        want = ctx.needs_input_grad[:3]
+        if not any(want):
+            return None, None, None, None, None, None
+        inputs = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, want)]
+        with torch.enable_grad():
+            out = ref.mha_reference(*inputs, **ctx.kw)
+            grads = torch.autograd.grad(out, [t for t in inputs if t.requires_grad], grad_out)
+        it = iter(grads)
+        return (*(next(it) if w else None for w in want), None, None, None)

@@ -11,6 +11,12 @@ holds about a million threads, so that a small batch still fills the card.
 A CPU tensor goes to the plain version (`repro_torch.extras.segment_mp.ref`);
 a CUDA tensor launches the kernel or raises. ``dst_sorted`` must be
 ascending on the card (nothing checks it: that would cost a sync).
+
+`SegmentMP` is the differentiable entry (what ``Kernels.segment_mp`` of the
+CUDA backend calls): its forward is `segment_mp`, its backward the plain
+version's vector-Jacobian product, a gather ``grad_messages[e] =
+grad_out[dst[e]]`` (0 for an id out of range). `segment_mp` itself refuses
+an input that requires grad under grad mode.
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.extras.segment_mp import ref
-from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
+from repro_torch.kernels.cuda import CudaKernel, check, on_cpu, refuse_grad
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -39,6 +45,7 @@ def chunk_for(n_edges: int, d: int) -> int:
 def segment_mp(messages: torch.Tensor, dst_sorted: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """``messages (E, d)`` float32, ``dst_sorted (E,)`` int32 ascending →
     ``(n_nodes, d)`` float32; ids outside ``[0, n_nodes)`` are dropped."""
+    refuse_grad("segment_mp", messages)
     if on_cpu(messages, dst_sorted):
         return ref.segment_mp_reference(messages, dst_sorted, n_nodes)
     check(messages, "messages", torch.float32, 2)
@@ -53,3 +60,27 @@ def segment_mp(messages: torch.Tensor, dst_sorted: torch.Tensor, n_nodes: int) -
         SEGMENT_MP(messages.data_ptr(), dst_sorted.data_ptr(), E, d, n_nodes,
                    chunk_for(E, d), out.data_ptr())
     return out
+
+
+class SegmentMP(torch.autograd.Function):
+    """`segment_mp` with a gradient for ``messages``: ``SegmentMP.apply(
+    messages, dst_sorted, n_nodes)``."""
+
+    @staticmethod
+    def forward(ctx, messages, dst_sorted, n_nodes):
+        ctx.save_for_backward(dst_sorted)
+        ctx.n_nodes = n_nodes
+        return segment_mp(messages, dst_sorted, n_nodes)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        (dst,) = ctx.saved_tensors
+        keep = (dst >= 0) & (dst < ctx.n_nodes)
+        if ctx.n_nodes == 0:
+            grad = grad_out.new_zeros((dst.shape[0], grad_out.shape[1]))
+        else:
+            grad = grad_out.index_select(0, torch.where(keep, dst, 0).long())
+            grad = torch.where(keep[:, None], grad, 0.0)
+        return grad, None, None

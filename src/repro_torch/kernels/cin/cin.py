@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.cin import ref
-from repro_torch.kernels.cuda import CudaKernel, check, on_cpu
+from repro_torch.kernels.cuda import CudaKernel, check, on_cpu, refuse_grad
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -27,6 +27,7 @@ CIN = CudaKernel("cin", "cin_layer", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I
 COLS, ROWS = 64, 256  # a block's columns of N = B·d and rows of H' (kCols, kBlockH)
 MAX_SPLITS = 8
 SPLIT_COST = 0.03  # a split's extra set-up, partial stores and second pass, per split
+GRAD_W_CHUNK_BYTES = 1 << 29  # a chunk's z in the backward's grad_w
 
 
 def splits(N: int, Hp: int, H: int, sms: int) -> int:
@@ -46,6 +47,7 @@ def _sms(device: torch.device) -> int:
 def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``xk (B, H, d)``, ``x0 (B, m, d)``, ``w (H·m, H')``, float32 →
     ``(B, H', d)`` float32."""
+    refuse_grad("cin_layer", xk, x0, w)
     if on_cpu(xk, x0, w):
         return ref.cin_layer_reference(xk, x0, w)
     check(xk, "xk", torch.float32, 3)
@@ -65,3 +67,42 @@ def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tens
         CIN(xk.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(), B, H,
             m, d, Hp, ks)
     return out
+
+
+def grad_w(xk: torch.Tensor, x0: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``Σ_{b,d} z[b, h·m + m′, d] · g[b, h′, d]`` → ``(H·m, H′)``, with
+    ``z = xk ⊗ x0`` formed a chunk of the batch at a time."""
+    B, H, d = xk.shape
+    m, Hp = x0.shape[1], g.shape[1]
+    chunk = max(1, GRAD_W_CHUNK_BYTES // max(1, H * m * d * xk.element_size()))
+    out = torch.zeros((H * m, Hp), dtype=xk.dtype, device=xk.device)
+    for i in range(0, B, chunk):
+        # z laid out (h, m′, b, d), so that the contraction is one plain GEMM
+        z = xk[i:i + chunk].transpose(0, 1)[:, None] * x0[i:i + chunk].transpose(0, 1)[None]
+        out += z.reshape(H * m, -1) @ g[i:i + chunk].transpose(1, 2).reshape(-1, Hp)
+    return out
+
+
+class CinLayer(torch.autograd.Function):
+    """`cin_layer` with gradients for xk, x0 and w:
+    ``CinLayer.apply(xk, x0, w)``."""
+
+    @staticmethod
+    def forward(ctx, xk, x0, w):
+        ctx.save_for_backward(xk, x0, w)
+        return cin_layer(xk, x0, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        xk, x0, w = ctx.saved_tensors
+        H, m, Hp = xk.shape[1], x0.shape[1], w.shape[1]
+        g = g.contiguous()
+        w3 = w.view(H, m, Hp)
+        gxk = gx0 = gw = None
+        if ctx.needs_input_grad[0]:
+            gxk = cin_layer(g, x0, w3.permute(2, 1, 0).reshape(Hp * m, H))
+        if ctx.needs_input_grad[1]:
+            gx0 = cin_layer(g, xk, w3.permute(2, 0, 1).reshape(Hp * H, m))
+        if ctx.needs_input_grad[2]:
+            gw = grad_w(xk, x0, g)
+        return gxk, gx0, gw

@@ -169,6 +169,18 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an input requires grad: a raw launcher
+    writes a fresh output through a pointer, so its output would carry no
+    graph and every upstream gradient would be lost without a word. The
+    autograd Function beside each launcher is the differentiable entry."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the raw launcher has no backward; "
+            f"call its autograd Function (or Kernels.{name}) instead"
+        )
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the wrappers then run the
     plain version); False when all lie on one CUDA device. Raises on a mix.

@@ -25,8 +25,14 @@ port therefore requires ``edge_src`` and ``edge_dst`` in ``[0, N)`` and
 ``graph_id`` in ``[0, G)``, which every batch of ``data/pipeline.py`` meets
 (padded edges point at node 0).
 
-Serving only: parameters do not require gradients and the aggregation
-kernel has no backward yet (training is a later slice of the port).
+Training: `loss_fn` (node or graph task, classification or regression,
+masked), as the JAX package's. The aggregation's gradient comes from
+``Kernels.segment_mp``'s autograd Function (the kernel forward, a gather
+backward). The forward is written for inference, with in-place ops on its
+``(E, d)`` temporaries; when grad is on and a parameter requires it, the
+ops whose backward needs the value they would overwrite (``sigmoid`` then
+``mul_``, ``relu_`` then ``add_``, GatedGCN's gate, the EGNN's ``diff``)
+run out of place instead, with the same values.
 """
 from __future__ import annotations
 
@@ -122,7 +128,7 @@ def _mlp(p, x: torch.Tensor, n: int, layer: int | None = None) -> torch.Tensor:
             w, b = w[layer], b[layer]
         x = torch.addmm(b, x, w)
         if i < n - 1:
-            x = torch.relu_(x)
+            x = torch.relu_(x)  # relu's backward reads its output, which no later op writes
     return x
 
 
@@ -135,8 +141,8 @@ def _ln(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------- model
 class GNN(nn.Module):
-    """One of the four GNN kinds for serving, with the JAX package's
-    parameters.
+    """One of the four GNN kinds for serving and training, with the JAX
+    package's parameters.
 
     ``device=None`` means the card (it raises without one; pass
     ``device="cpu"`` for the plain versions on the CPU). ``kernels``
@@ -174,6 +180,7 @@ class GNN(nn.Module):
         ``(G, n_classes)`` for ``task="graph"``; ``g``'s fields are tensors
         on the model's device."""
         cfg, seg = self.cfg, self.kernels.segment_mp
+        train = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
         h = _mlp(self.enc_node, g.node_feat, 2)
         N = h.shape[0]
         # one stable sort by destination; every layer runs on this order
@@ -203,11 +210,17 @@ class GNN(nn.Module):
                 e_new = (h @ p["A"][l]).index_select(0, dst_l)
                 e_new += (h @ p["B"][l]).index_select(0, src)
                 e_new.addmm_(e, p["C"][l])
-                e = _ln(e_new.relu_().add_(e), p["norm_e"][l])
-                gate = torch.sigmoid(e).mul_(em)
+                if train:
+                    e = _ln(torch.relu(e_new) + e, p["norm_e"][l])
+                    gate = torch.sigmoid(e) * em
+                else:
+                    e = _ln(e_new.relu_().add_(e), p["norm_e"][l])
+                    gate = torch.sigmoid(e).mul_(em)
+                del e_new
                 denom = seg(gate, dst, N).add_(1e-6)
-                msg = seg(gate.mul_((h @ p["V"][l]).index_select(0, src)), dst, N).div_(denom)
-                del gate
+                hv = (h @ p["V"][l]).index_select(0, src)
+                msg = seg(gate * hv if train else gate.mul_(hv), dst, N).div_(denom)
+                del hv, gate
                 h = _ln(h + torch.relu_(torch.addmm(msg, h, p["U"][l])), p["norm_h"][l])
 
         elif cfg.kind == "egnn":
@@ -224,7 +237,7 @@ class GNN(nn.Module):
                     inp.append(ef)
                 m = torch.nn.functional.silu(_mlp(p["phi_e"], torch.cat(inp, -1), 2, l)).mul_(em)
                 w = _mlp(p["phi_x"], m, 2, l)                            # (E, 1)
-                x = x + seg(diff.mul_(w).mul_(em), dst, N) / deg
+                x = x + seg((diff * w if train else diff.mul_(w)).mul_(em), dst, N) / deg
                 agg = seg(m, dst, N)
                 h = h + _mlp(p["phi_h"], torch.cat([h, agg], -1), 2, l)
 
@@ -251,6 +264,32 @@ class GNN(nn.Module):
             cnt = seg(nm.contiguous(), gsorted, G)
             return _mlp(self.head, pooled / torch.clamp(cnt, min=1.0), 2)
         return _mlp(self.head, h, 2)
+
+
+def loss_fn(cfg: GNNConfig, model: GNN, g: GraphBatch) -> torch.Tensor:
+    """The JAX package's ``loss_fn``: a graph task's mean squared error
+    (float labels) or cross entropy; a node task's squared error
+    (``task="regression"`` or float labels) or cross entropy, averaged over
+    ``label_mask`` (else ``node_mask``). ``g``'s fields are tensors on the
+    model's device."""
+    if model.cfg != cfg:
+        raise ValueError(f"the model was built for {model.cfg.name!r}, not {cfg.name!r}")
+    out = model(g)
+    float_labels = g.labels is not None and g.labels.is_floating_point()
+    if cfg.task == "graph":
+        if float_labels:  # graph-level regression (MeshGraphNet × molecule)
+            return torch.mean((out[..., 0] - g.labels.to(out.dtype)) ** 2)
+        lp = torch.log_softmax(out.float(), dim=-1)
+        return torch.mean(-torch.gather(lp, 1, g.labels.long()[:, None])[:, 0])
+    mask = g.label_mask if g.label_mask is not None else g.node_mask
+    if cfg.task == "regression" or float_labels:
+        mask = mask.to(out.dtype)
+        sq = (out[..., 0] - g.labels.to(out.dtype)) ** 2
+        return torch.sum(sq * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    lp = torch.log_softmax(out.float(), dim=-1)
+    nll = -torch.gather(lp, 1, g.labels.long()[:, None])[:, 0]
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def params_from_jax(

@@ -139,7 +139,13 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig, act: str = "swiglu"
     dtype, ``c_k = y[slot of (t, k)] · w[t, k]`` (the weight cast to x's
     dtype first), k in `route`'s order (descending score). The JAX
     package adds the same products to zeros by scatter-add, in the
-    sorted order; in float32 the two differ by rounding only."""
+    sorted order; in float32 the two differ by rounding only.
+
+    It is differentiable (training): the combine weights carry the
+    router's gradient, and ``aux`` (the load-balance loss, 0 without
+    ``aux_loss_weight``) goes into the LM's loss. With grad on, the
+    expert output is built out of place (``bmm(out=…)`` has no gradient);
+    the values are the same."""
     T, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     G = cfg.dispatch_groups if cfg.dispatch_groups > 1 and T % cfg.dispatch_groups == 0 else 1
@@ -159,9 +165,13 @@ def moe_ffn(x: torch.Tensor, p, cfg: MoEConfig, act: str = "swiglu"
     # ---- expert GEMMs ----------------------------------------------------
     h = _gate(torch.bmm(xb, p["wi_gate"]), act).mul_(torch.bmm(xb, p["wi_up"]))
     del buf, xb
-    yb = x.new_empty((E * G * C + 1, D))
-    yb[-1].zero_()
-    torch.bmm(h, p["wo"], out=yb[:-1].view(E, G * C, D))
+    if torch.is_grad_enabled() and (h.requires_grad or p["wo"].requires_grad):
+        # training: ``out=`` has no gradient; the drop row is appended
+        yb = torch.cat([torch.bmm(h, p["wo"]).view(E * G * C, D), x.new_zeros((1, D))])
+    else:
+        yb = x.new_empty((E * G * C + 1, D))
+        yb[-1].zero_()
+        torch.bmm(h, p["wo"], out=yb[:-1].view(E, G * C, D))
     del h
 
     # ---- combine: each token's K contributions, in k order -------------

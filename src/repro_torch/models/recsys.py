@@ -14,8 +14,9 @@ Heads (as in the JAX package):
 The CIN layers run through ``Kernels.cin_layer`` — the hand-written CUDA
 kernel on the card (``csrc/cin.cu``), the plain version on the CPU. The DNN
 and projection products stay `torch.matmul`, as the JAX package leaves them
-to XLA. Serving only: parameters do not require gradients, and the CIN
-kernel has no backward yet (training is a later slice of the port).
+to XLA. Training: `loss_fn` (the stable BCE with logits); the CIN layers'
+gradients come from ``Kernels.cin_layer``'s autograd Function (the kernel
+forward; two of its three gradients are CIN layers too, on the kernel).
 """
 from __future__ import annotations
 
@@ -91,7 +92,7 @@ def embedding_bag_ragged(
 
 # ------------------------------------------------------------------- model
 class XDeepFM(nn.Module):
-    """xDeepFM for serving, with the JAX package's parameters.
+    """xDeepFM for serving and training, with the JAX package's parameters.
 
     ``device=None`` means the card (it raises without one; pass
     ``device="cpu"`` for the plain versions on the CPU). ``kernels``
@@ -167,6 +168,17 @@ class XDeepFM(nn.Module):
         user = emb.reshape(1, -1) @ self.user_proj               # (1, d)
         items = self.tables[0][cand_ids.long()] @ self.item_proj  # (Nc, d)
         return items @ user[0]
+
+
+def loss_fn(cfg: RecSysConfig, model: XDeepFM, ids: torch.Tensor, bag_mask: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``loss_fn``: the mean numerically stable binary
+    cross entropy of the CTR logits against ``labels (B,)``."""
+    if model.cfg != cfg:
+        raise ValueError(f"the model was built for {model.cfg.name!r}, not {cfg.name!r}")
+    z = model(ids, bag_mask).float()
+    y = labels.float()
+    return torch.mean(torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-torch.abs(z))))
 
 
 def params_from_jax(

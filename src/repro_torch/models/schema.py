@@ -1,7 +1,9 @@
 """Parameters of the port's models, as the JAX package's ``models/schema.py``
 makes them: the init kinds of its schemas, each leaf in its own dtype, and
 the copy of a JAX parameter tree into a module whose parameter names are
-that tree's paths."""
+that tree's paths. Parameters are made for serving (no gradient);
+`trainable` turns gradients on for training, and `opt_state_from_jax`
+carries a JAX ``AdamWState`` over to the port's."""
 from __future__ import annotations
 
 import math
@@ -9,6 +11,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.optim import AdamWState, QTensor
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # a leaf whose float32 draw would be larger is drawn a block of leading
@@ -92,10 +96,7 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     n_leaves = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
-            node = params
-            for part in name.split("."):
-                node = node[part]
-            arr = np.array(node, dtype=np.float32)  # a copy: the input may be read-only
+            arr = np.array(_leaf(params, name), dtype=np.float32)  # a copy: the input may be read-only
             if arr.shape != tuple(p.shape):
                 raise ValueError(f"{name}: shape {arr.shape}, expected {tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr))
@@ -104,6 +105,44 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     if given != n_leaves:
         raise ValueError(f"params has {given} arrays, the schema {n_leaves}")
     return model
+
+
+def trainable(model: nn.Module, on: bool = True) -> nn.Module:
+    """Turn gradients on (or off) for every parameter of ``model``: the
+    switch between serving (the default: nothing is recorded for a
+    backward) and training. Returns ``model``."""
+    for p in model.parameters():
+        p.requires_grad_(on)
+    return model
+
+
+def _leaf(tree: dict, name: str):
+    node = tree
+    for part in name.split("."):
+        node = node[part]
+    return node
+
+
+def opt_state_from_jax(state, model: nn.Module):
+    """The port's `repro_torch.optim.AdamWState` from a JAX one (``step``,
+    ``m``, ``v``; ``m`` and ``v`` nested dicts whose paths are ``model``'s
+    dotted parameter names, each leaf a numpy array or a ``QTensor`` of two),
+    on the model's devices: float32 moments stay float32, int8 payloads
+    int8, bit for bit."""
+    def conv(x, dev):
+        if isinstance(x, tuple):  # a JAX QTensor (q, scale)
+            return QTensor(*(torch.from_numpy(np.array(t)).to(dev) for t in x))
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    params = dict(model.named_parameters())
+    if _count_leaves(state.m) != len(params):
+        raise ValueError(f"m has {_count_leaves(state.m)} leaves, the model {len(params)}")
+    dev = next(iter(params.values())).device
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=dev),
+        m={n: conv(_leaf(state.m, n), p.device) for n, p in params.items()},
+        v={n: conv(_leaf(state.v, n), p.device) for n, p in params.items()},
+    )
 
 
 def _count_leaves(tree) -> int:

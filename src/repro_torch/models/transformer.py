@@ -35,8 +35,14 @@ both, as it is jnp outside any kernel there. The decode cache is updated in
 place (the JAX package returns a new one): the returned `DecodeCache` holds
 the same tensors.
 
-Not ported: training — ``loss_fn``, the MoE auxiliary loss's use and the
-MTP loss — and MLA with a rolling cache (the JAX package asserts a sliding
+Training: `loss_fn` (next-token cross entropy on float32 logits, plus the
+MoE auxiliary loss, plus DeepSeek-V3's 1-depth MTP head at ``0.1 ×``) over
+`Transformer.forward_train`, which runs each layer under
+`torch.utils.checkpoint` when ``cfg.remat`` asks for it. The attention's
+gradient comes from ``Kernels.flash_attention``'s autograd Function (the
+kernel forward, the plain version's vector-Jacobian product).
+
+Not ported: MLA with a rolling cache (the JAX package asserts a sliding
 window for one, and its absorbed decode writes slot ``pos``); it raises.
 """
 from __future__ import annotations
@@ -45,6 +51,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
@@ -154,7 +161,8 @@ def init_cache(cfg: LMConfig, batch: int, s_cap: int, *, rolling: bool = False,
 
 # ------------------------------------------------------------------- model
 class Transformer(nn.Module):
-    """A decoder-only LM for serving, with the JAX package's parameters.
+    """A decoder-only LM for serving and training, with the JAX package's
+    parameters (they require grad once `schema.trainable` turns them on).
 
     ``device=None`` means the card (it raises without one; pass
     ``device="cpu"`` for the plain versions on the CPU). ``kernels``
@@ -217,37 +225,52 @@ class Transformer(nn.Module):
         wo = self.attn["wo"][l]
         return (o.reshape(B * S, -1) @ wo.reshape(-1, wo.shape[-1])).view(B, S, -1)
 
-    def ffn(self, l: int, h: torch.Tensor) -> torch.Tensor:
-        """Layer ``l``'s FFN on the normed stream ``h (B, S, D)``: the GLU
-        MLP of a dense layer, or `models.moe.moe_ffn` over the ``B·S``
-        tokens of a MoE layer (its auxiliary loss dropped: serving)."""
+    def ffn(self, l: int, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``l``'s FFN on the normed stream ``h (B, S, D)`` and its
+        auxiliary loss (serving drops it): the GLU MLP of a dense layer
+        (aux 0), or `models.moe.moe_ffn` over the ``B·S`` tokens of a MoE
+        layer."""
         cfg = self.cfg
         k = _first_moe(cfg)
         if l < k:
             f = self.ffn_dense
-            return glu_mlp(h, f["wi_gate"][l], f["wi_up"][l], f["wo"][l], cfg.act)
+            out = glu_mlp(h, f["wi_gate"][l], f["wi_up"][l], f["wo"][l], cfg.act)
+            return out, torch.zeros((), dtype=torch.float32, device=h.device)
         B, S, D = h.shape
         p = {name: w[l - k] for name, w in self.moe.items()}
-        return moe_lib.moe_ffn(h.reshape(B * S, D), p, cfg.moe, cfg.act)[0].view(B, S, D)
+        out, aux = moe_lib.moe_ffn(h.reshape(B * S, D), p, cfg.moe, cfg.act)
+        return out.view(B, S, D), aux
+
+    def _attention(self, l: int, x: torch.Tensor, positions: torch.Tensor):
+        """Layer ``l``'s attention (through ``Kernels.flash_attention``) on
+        the stream ``x``: ``(out (B, S, D), cache entries)``."""
+        cfg = self.cfg
+        h = rms_norm(x, self.norm_attn[l], cfg.norm_eps)
+        if cfg.mla is not None:
+            return mla_lib.mla_attention(self.mla, l, h, positions, cfg,
+                                         self.kernels.flash_attention)
+        q, k, v = self._qkv(l, h, positions)
+        o = self.kernels.flash_attention(
+            q, k, v, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+        del q
+        return self._attn_out(l, o), (k, v)
 
     def layer(self, l: int, x: torch.Tensor, positions: torch.Tensor):
         """Layer ``l`` over a whole sequence (its attention through
         ``Kernels.flash_attention``): ``(x, *cache)``, the residual stream
         after the layer and the layer's cache entries — rotated keys and
         values (GQA), or ``c_kv`` and ``k_rope`` (MLA)."""
-        cfg = self.cfg
-        h = rms_norm(x, self.norm_attn[l], cfg.norm_eps)
-        if cfg.mla is not None:
-            a, kv = mla_lib.mla_attention(self.mla, l, h, positions, cfg,
-                                          self.kernels.flash_attention)
-        else:
-            q, k, v = self._qkv(l, h, positions)
-            o = self.kernels.flash_attention(
-                q, k, v, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-            del q
-            a, kv = self._attn_out(l, o), (k, v)
+        a, kv = self._attention(l, x, positions)
         x = x + a
-        return x + self.ffn(l, rms_norm(x, self.norm_ffn[l], cfg.norm_eps)), *kv
+        return x + self.ffn(l, rms_norm(x, self.norm_ffn[l], self.cfg.norm_eps))[0], *kv
+
+    def train_layer(self, l: int, x: torch.Tensor, positions: torch.Tensor):
+        """Layer ``l`` for training: ``(x, aux)``, the stream after the layer
+        and its FFN's auxiliary loss; no cache."""
+        a, _ = self._attention(l, x, positions)
+        x = x + a
+        out, aux = self.ffn(l, rms_norm(x, self.norm_ffn[l], self.cfg.norm_eps))
+        return x + out, aux
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """The residual stream ``(B, S, D)`` → logits ``(B, S, V)``."""
@@ -275,6 +298,29 @@ class Transformer(nn.Module):
                     c[l] = t
             del parts
         return self.head(x), kv
+
+    def forward_train(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward: ``tokens (B, S)`` → ``(logits (B, S, V),
+        aux)``, the MoE layers' auxiliary losses summed. With grad on and
+        ``cfg.remat`` ``"block"`` or ``"full"``, each layer runs under
+        `torch.utils.checkpoint` (``use_reentrant=False``): only its input
+        is kept, and the backward runs the layer again (its attention
+        kernel too). The JAX package's ``"block"`` policy keeps the
+        matmuls' outputs as well; either way the gradients are the same
+        function."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed_tokens(tokens)
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = cfg.remat in ("block", "full") and torch.is_grad_enabled()
+        for l in range(cfg.n_layers):
+            if remat:
+                x, a = checkpoint(self.train_layer, l, x, positions, use_reentrant=False)
+            else:
+                x, a = self.train_layer(l, x, positions)
+            aux = aux + a
+        return self.head(x), aux
 
     def prefill(self, tokens: torch.Tensor):
         """Full forward + caches: ``(logits, DecodeCache)`` of ``S`` slots."""
@@ -324,8 +370,35 @@ class Transformer(nn.Module):
                                   window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
                 a = self._attn_out(l, o)
             x = x + a
-            x = x + self.ffn(l, rms_norm(x, self.norm_ffn[l], cfg.norm_eps))
+            x = x + self.ffn(l, rms_norm(x, self.norm_ffn[l], cfg.norm_eps))[0]
         return self.head(x), cache
+
+
+def loss_fn(cfg: LMConfig, model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy (+ MoE aux, + 1-depth MTP head when on), as
+    the JAX package's ``loss_fn``: a float32 scalar."""
+    if model.cfg != cfg:
+        raise ValueError(f"the model was built for {model.cfg.name!r}, not {cfg.name!r}")
+    logits, aux = model.forward_train(tokens)
+    tgt = tokens[:, 1:].long()
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    del logits
+    nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
+    loss = torch.mean(nll) + aux
+    if cfg.mtp_depth > 0:
+        # 1-depth MTP (DSv3 §2.2, lightweight variant): combine the current
+        # token's embedding with the next token's, project, share the head,
+        # and predict token t+2.
+        emb_next = nn.functional.embedding(tokens[:, 1:], model.embed)
+        h = nn.functional.embedding(tokens[:, :-1], model.embed)
+        cat = torch.cat([rms_norm(h, model.mtp["norm"], cfg.norm_eps), emb_next], dim=-1)
+        h2 = cat @ model.mtp["proj"]
+        head = model.embed.T if cfg.tie_embeddings else model.lm_head
+        mtp_logits = h2[:, :-1] @ head
+        lp2 = torch.log_softmax(mtp_logits.float(), dim=-1)
+        nll2 = -torch.gather(lp2, -1, tokens[:, 2:].long()[..., None])[..., 0]
+        loss = loss + 0.1 * torch.mean(nll2)
+    return loss
 
 
 def params_from_jax(

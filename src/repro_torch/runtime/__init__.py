@@ -1,12 +1,18 @@
 """Query-execution resilience (`resilience`), seeded fault injection
-(`chaos`) and the continuous-batching query server (`server`) — the JAX
-package's ``repro.runtime`` surface without ``fault_tolerance``, the
-training supervisor, which waits for the port's training path."""
+(`chaos`), the continuous-batching query server (`server`) and the training
+supervisor (`fault_tolerance`) — the JAX package's ``repro.runtime``
+surface."""
 from repro_torch.runtime.chaos import (
     ChaosConfig,
     ChaosInjector,
     ChaosKernels,
     ShardFaultError,
+)
+from repro_torch.runtime.fault_tolerance import (
+    SimulatedPreemption,
+    TrainSupervisor,
+    elastic_restore,
+    straggler_update,
 )
 from repro_torch.runtime.resilience import (
     DegradeReason,
@@ -35,7 +41,11 @@ __all__ = [
     "ServerConfig",
     "ServerStats",
     "ShardFaultError",
+    "SimulatedPreemption",
     "Ticket",
+    "TrainSupervisor",
     "adaptive_run",
+    "elastic_restore",
+    "straggler_update",
     "summarize_outcomes",
 ]

@@ -1,14 +1,150 @@
-"""Family-specific serving entry points, as the JAX package's
-``train/step.make_serve_fns``. The port serves the LM (dense, MoE and MLA),
-GNN and recsys families; training steps are not ported yet."""
+"""Family-generic train and serve step builders: the port of
+``src/repro/train/step.py``.
+
+`make_train_step` returns ``step(model, opt_state, batch, step) →
+(opt_state, metrics)``: the loss of the model's family (`loss_for`), its
+gradients by autograd, then `repro_torch.optim.update` with the
+`cosine_warmup` scale, which writes the parameters in place. With
+``microbatches = n > 1`` the batch is split as the JAX package's
+``_split_batch`` splits it (an array whose dim 0 divides by n is cut into n
+parts, any other is given whole to every part), each part's gradients are
+added into float32 buffers, and the step takes their mean and the mean of
+the parts' losses — the JAX package's ``lax.scan`` over microbatches, as a
+Python loop. A `GraphBatch` is refused there: the JAX rule would cut its
+nodes and its edges apart independently (its edge ids then point past a
+part's nodes, which JAX clamps and PyTorch refuses).
+
+`make_serve_fns` gives the serving entry points of a model.
+"""
 from __future__ import annotations
 
 from typing import Any, Callable
 
 import torch
 
+from repro_torch import optim
 from repro_torch.configs.base import GNNConfig, LMConfig, RecSysConfig
-from repro_torch.models.gnn import batch_to
+from repro_torch.models import gnn as gnn_lib
+from repro_torch.models import recsys as recsys_lib
+from repro_torch.models import transformer as tf
+from repro_torch.models.gnn import GraphBatch, batch_to
+from repro_torch.models.schema import trainable
+
+
+def batch_on(batch, device: torch.device):
+    """A batch (an LM's ``{"tokens"}``, a recsys ``{"ids", "bag_mask",
+    "labels"}``, a GNN's ``{"graph": GraphBatch}``) with every array a
+    tensor on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        out[k] = batch_to(v, device) if isinstance(v, GraphBatch) else torch.as_tensor(
+            v, device=device)
+    return out
+
+
+def loss_for(cfg, batch) -> Callable[[torch.nn.Module], torch.Tensor]:
+    """The loss of ``cfg``'s family on ``batch`` (tensors on the model's
+    device), as a function of the model."""
+    if isinstance(cfg, LMConfig):
+        return lambda model: tf.loss_fn(cfg, model, batch["tokens"])
+    if isinstance(cfg, GNNConfig):
+        return lambda model: gnn_lib.loss_fn(cfg, model, batch["graph"])
+    if isinstance(cfg, RecSysConfig):
+        return lambda model: recsys_lib.loss_fn(
+            cfg, model, batch["ids"], batch["bag_mask"], batch["labels"])
+    raise TypeError(type(cfg))
+
+
+def _split_batch(batch: dict, n: int) -> list[dict]:
+    """The JAX package's ``_split_batch``: n parts of ``batch``."""
+    parts = [{} for _ in range(n)]
+    for k, x in batch.items():
+        if isinstance(x, GraphBatch):
+            raise NotImplementedError(
+                "microbatches > 1 on a GraphBatch: the JAX package's split cuts its nodes "
+                "and edges apart; give the GNN one batch a step")
+        if x.ndim >= 1 and x.shape[0] % n == 0:
+            for i, piece in enumerate(x.view(n, x.shape[0] // n, *x.shape[1:])):
+                parts[i][k] = piece
+        else:
+            for part in parts:
+                part[k] = x
+    return parts
+
+
+def grads_of(params: dict) -> dict:
+    """Each parameter's gradient; zeros for one the loss does not reach (a
+    serving-only leaf), as JAX's gradient of it is."""
+    return {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
+
+
+def make_train_step(
+    cfg,
+    opt_cfg: optim.AdamWConfig,
+    *,
+    total_steps: int = 10_000,
+    warmup: int = 200,
+    microbatches: int = 1,
+):
+    """``step(model, opt_state, batch, step) → (opt_state, metrics)`` with
+    ``metrics`` ``{"loss", "grad_norm", "lr"}`` (0-dim tensors). ``batch``
+    may hold numpy arrays; they are moved to the model's device. The model's
+    parameters are turned trainable, updated in place, and left without
+    gradients (``.grad`` is freed after the update)."""
+
+    def train_step(model, opt_state, batch, step):
+        trainable(model)
+        params = dict(model.named_parameters())
+        batch = batch_on(batch, model.device)
+        model.zero_grad(set_to_none=True)
+        if microbatches > 1:
+            gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    for n, p in params.items()}
+            lsum = 0.0
+            for part in _split_batch(batch, microbatches):
+                loss = loss_for(cfg, part)(model)
+                loss.backward()
+                for n, p in params.items():
+                    if p.grad is not None:
+                        gsum[n] += p.grad
+                model.zero_grad(set_to_none=True)
+                lsum = lsum + loss.detach()
+            grads = {n: g / microbatches for n, g in gsum.items()}
+            del gsum
+            loss = lsum / microbatches
+        else:
+            loss = loss_for(cfg, batch)(model)
+            loss.backward()
+            loss = loss.detach()
+            grads = grads_of(params)
+        lr_scale = optim.cosine_warmup(step, warmup=warmup, total=total_steps).to(loss.device)
+        opt_state, metrics = optim.update(opt_cfg, grads, opt_state, params, lr_scale)
+        del grads
+        model.zero_grad(set_to_none=True)
+        metrics["loss"] = loss
+        return opt_state, metrics
+
+    return train_step
+
+
+def supervised(model, step) -> tuple[Callable, dict]:
+    """``(step_fn, params)`` for `repro_torch.runtime.TrainSupervisor`: its
+    state is ``(params, opt_state)``, ``params`` the model's own
+    ``{name: Parameter}``; a state restored from a checkpoint (other
+    tensors) is copied into the model first. ``step`` is a
+    `make_train_step` step."""
+    params = dict(model.named_parameters())
+
+    def step_fn(state, batch, s):
+        p, opt_state = state
+        if p is not params:
+            with torch.no_grad():
+                for name, t in p.items():
+                    params[name].copy_(t)
+        opt_state, metrics = step(model, opt_state, batch, s)
+        return (params, opt_state), metrics
+
+    return step_fn, params
 
 
 def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
@@ -33,8 +169,7 @@ def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
     """
     if not isinstance(cfg, (LMConfig, GNNConfig, RecSysConfig)):
         raise NotImplementedError(
-            f"{type(cfg).__name__}: the port serves the LM, GNN and recsys families; "
-            "training is not ported yet")
+            f"{type(cfg).__name__}: the port serves the LM, GNN and recsys families")
     if model.cfg != cfg:
         raise ValueError(f"the model was built for {model.cfg.name!r}, not {cfg.name!r}")
 

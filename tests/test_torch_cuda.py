@@ -865,3 +865,106 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
         fa.flash_attention(q, kv, kv, softcap=-1.0)
     with pytest.raises(ValueError, match="several devices"):
         fa.flash_attention(q, kv.cpu(), kv)
+
+
+# ------------------------------------------------------------------ training
+def _function_case(op, dev, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    if op == "cin_layer":
+        return (r(300, 39, 10), r(300, 39, 10), r(39 * 39, 200)), {}, r(300, 200, 10), [0, 1, 2]
+    if op == "segment_mp":
+        dst = torch.sort(torch.randint(-2, 900, (5000,), generator=g, device=dev)).values.int()
+        return (r(5000, 70), dst, 880), {}, r(880, 70), [0]
+    kw = dict(window=100, softcap=30.0)
+    return (r(2, 300, 8, 256), r(2, 300, 1, 256), r(2, 300, 1, 256)), kw, r(2, 300, 8, 256), [0, 1, 2]
+
+
+@pytest.mark.parametrize("op,dtype", [("cin_layer", torch.float32),
+                                      ("segment_mp", torch.float32),
+                                      ("flash_attention", torch.bfloat16),
+                                      ("flash_attention", torch.float32)],
+                         ids=["cin_layer", "segment_mp", "flash-tc", "flash-tf32"])
+def test_function_gradients_on_card_match_the_plain_autograd(dev, op, dtype):
+    """Each kernel's autograd Function (the CUDA backend's op: the kernel
+    forward, one launch) against autograd of the plain version on the card:
+    its gradients within ``1e-4 ·`` each gradient's max|plain| (cin_layer's
+    input gradients are CIN layers on the kernel too; the attention and
+    segment_mp vjps are the plain version's own, so those are exact)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, kw, go, diff = _function_case(op, dev, dtype)
+    grads = []
+    for backend in ("cuda", "torch"):
+        xs = [a.clone().requires_grad_(i in diff) if isinstance(a, torch.Tensor) else a
+              for i, a in enumerate(args)]
+        before = dict(cuda.launch_counts())
+        getattr(get_kernels(backend), op)(*xs, **kw).backward(go)
+        torch.cuda.synchronize()
+        moved = sum(v - before[k] for k, v in cuda.launch_counts().items())
+        assert moved == ({"cin_layer": 3}.get(op, 1) if backend == "cuda" else 0)
+        grads.append([xs[i].grad for i in diff])
+    for a, b in zip(*grads):
+        assert a.dtype == b.dtype and torch.isfinite(a.float()).all()
+        tol = 0.0 if op != "cin_layer" else 1e-4
+        assert (a.float() - b.float()).abs().max() <= tol * b.float().abs().max()
+
+
+@pytest.mark.parametrize("family", ["gemma-2b", "gatedgcn", "xdeepfm"])
+def test_train_step_on_card_matches_the_cpu(dev, family):
+    """One family's fp32 smoke config, the same weights on card and CPU: the
+    loss and every gradient leaf within ``1e-4 ·`` the leaf's max|cpu| (TF32
+    off), then one `make_train_step` step at lr > 0 (a first Adam step): the
+    parameters within ``2 · lr`` of the CPU's, and all but 0.1% of a leaf's
+    elements within ``1e-2 · lr``."""
+    from repro_torch import optim
+    from repro_torch.configs import gatedgcn, gemma_2b, xdeepfm
+    from repro_torch.data.pipeline import gnn_full_batch, lm_batch, recsys_batch
+    from repro_torch.graphstore import generators
+    from repro_torch.models.gnn import GNN
+    from repro_torch.models.recsys import XDeepFM
+    from repro_torch.models.schema import trainable
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import batch_on, loss_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if family == "gemma-2b":
+        cfg, cls = gemma_2b.smoke(), Transformer
+        batch = lm_batch(cfg, 2, 64, seed=0, step=0)
+    elif family == "gatedgcn":
+        cfg, cls = gatedgcn.smoke(), GNN
+        batch = {"graph": gnn_full_batch(cfg, generators.rmat(500, 2000, 4, seed=0),
+                                         n_classes=cfg.n_classes, seed=0)}
+    else:
+        cfg, cls = xdeepfm.smoke(), XDeepFM
+        batch = recsys_batch(cfg, 256, seed=0, step=0)
+    gpu = trainable(cls(cfg, device=dev))
+    cpu = trainable(cls(cfg, device="cpu"))
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(cpu.named_parameters(), gpu.named_parameters()):
+            a.copy_(b.cpu())
+    assert gpu.kernels.name == "cuda" and cpu.kernels.name == "torch"
+    losses = []
+    for m in (gpu, cpu):
+        loss = loss_for(cfg, batch_on(batch, m.device))(m)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    for (n, a), (_, b) in zip(gpu.named_parameters(), cpu.named_parameters()):
+        ga = a.grad.cpu() if a.grad is not None else torch.zeros_like(b)
+        gb = b.grad if b.grad is not None else torch.zeros_like(b)
+        assert (ga - gb).abs().max() <= 1e-4 * gb.abs().max(), n
+    opt = optim.AdamWConfig()
+    for m in (gpu, cpu):
+        m.zero_grad(set_to_none=True)
+        step = make_train_step(cfg, opt, total_steps=4, warmup=1)
+        step(m, optim.init(opt, dict(m.named_parameters())), batch, 1)
+    for (n, a), (_, b) in zip(gpu.named_parameters(), cpu.named_parameters()):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        # a first Adam step is about lr · g / |g|: where g is ~0 its sign may
+        # differ between the two sides, so those few elements may be 2 lr apart
+        assert diff.max() <= 2 * opt.lr, n
+        assert (diff > 1e-2 * opt.lr).float().mean() <= 1e-3, n

@@ -233,14 +233,14 @@ def test_serve_fn_on_minibatch_matches_jax(graphs):
 
 
 def test_lm_configs_still_raise():
-    """What the port does not serve still raises and names it (training); a
-    MoE LM config, refused before, now builds and serves."""
+    """What the port does not serve still raises and names the families it
+    serves; a MoE LM config, refused before, now builds and serves."""
     from repro_torch.configs import MoEConfig, gemma_2b
     from repro_torch.models.transformer import Transformer
 
     model = gnn.GNN(SMOKE["gin"], device="cpu")
-    with pytest.raises(NotImplementedError, match="LM, GNN and recsys families; training is "
-                                                  "not ported yet"):
+    with pytest.raises(NotImplementedError, match="the port serves the LM, GNN and recsys "
+                                                  "families$"):
         make_serve_fns(object(), model)
     moe = dataclasses.replace(gemma_2b.smoke(), moe=MoEConfig(n_experts=4, top_k=2,
                                                               d_ff_expert=32))

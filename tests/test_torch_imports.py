@@ -53,7 +53,10 @@ def test_the_port_has_its_modules():
                 "extras/flash_attention/ops.py", "core/dist.py", "core/collectives.py",
                 "graphstore/cluster_graph.py", "configs/stwig.py", "workloads.py",
                 "runtime/chaos.py", "runtime/server.py", "api/serve.py",
-                "launch/serve.py"):
+                "launch/serve.py", "optim/adamw.py", "optim/__init__.py",
+                "checkpoint/checkpointer.py", "checkpoint/__init__.py",
+                "runtime/fault_tolerance.py", "extras/train.py", "train/__init__.py",
+                "models/moe.py", "models/mla.py"):
         assert f"src/repro_torch/{mod}" in names
     for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu",
                 "segment_mp.cu", "join_probe.cu", "probe.cuh", "flash_attention.cu",

@@ -197,15 +197,15 @@ def test_device_none_means_the_card():
 
 
 def test_serve_fns_refuse_other_families():
-    """The refusal names only what is left (training); an MLA + MoE LM
-    config (deepseek-v3's smoke config) serves."""
+    """The refusal names the families the port serves (training is ported,
+    so it no longer names that); an MLA + MoE LM config (deepseek-v3's smoke
+    config) serves."""
     from repro_torch.configs import deepseek_v3_671b
     from repro_torch.models.transformer import Transformer
 
     model = recsys.XDeepFM(xdeepfm.smoke(), device="cpu")
     with pytest.raises(NotImplementedError,
-                       match=r"the port serves the LM, GNN and recsys families; "
-                             r"training is not ported yet$"):
+                       match=r"the port serves the LM, GNN and recsys families$"):
         make_serve_fns(object(), model)
     with pytest.raises(ValueError, match="built for"):
         make_serve_fns(NARROW, model)
