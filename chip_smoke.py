@@ -282,10 +282,18 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
-CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (data sheet)
-TF32_OPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate (data sheet)
-BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate (data sheet)
+# the H100 SXM data-sheet rates and the models' useful FLOPs, from the
+# port's roofline (one source)
+from repro_torch.analysis.roofline import (  # noqa: E402
+    BF16_FLOPS as BF16_OPS_PER_S,
+    FP32_FLOPS as CUDA_CORE_OPS_PER_S,
+    HBM_BW as HBM_BYTES_PER_S,
+    TF32_FLOPS as TF32_OPS_PER_S,
+    model_flops_lm,
+    model_flops_recsys,
+    peak_for,
+)
+
 MATCHER_KERNELS = ("stwig_expand", "hash_join_probe", "bitset_lookup", "bitset_build",
                    "bitset_pack")
 PATENTS = dict(n_nodes=3_774_768, n_edges=16_522_438, n_labels=418, seed=0)
@@ -502,6 +510,16 @@ def phase_device() -> tuple[str, str]:
     log(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
     return name, smi
+
+
+def flops_share(model_flops: float, ms: float, rate: str, smi: str) -> str:
+    """A step's model FLOPs (`repro_torch.analysis.roofline.model_flops_*`)
+    over its measured time, as a share of the H100's peak for ``rate``, on
+    the card ``smi`` names (its name and power limit, from nvidia-smi)."""
+    per_s = model_flops / (ms / 1e3)
+    return (f"model FLOPs {model_flops:.6g} in {ms:.4f} ms: {per_s / 1e12:.3f} TFLOP/s, "
+            f"{100 * per_s / peak_for(rate):.2f}% of the {rate} peak "
+            f"({peak_for(rate) / 1e12:g} T/s) on {smi}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1714,7 +1732,7 @@ def cin_parts(xk, x0, w, ks: int) -> torch.Tensor:
     return out
 
 
-def phase_recsys(dev) -> list[dict]:
+def phase_recsys(dev, smi: str) -> list[dict]:
     from repro_torch.configs import xdeepfm
     from repro_torch.core.backend import get_kernels
     from repro_torch.data.pipeline import recsys_batch
@@ -1862,6 +1880,9 @@ def phase_recsys(dev) -> list[dict]:
         f"{[round(x, 4) for x in bulk_layers]} ms = {100 * bulk_cin_ms / fwd_bulk:.1f}% of it "
         f"(fp32 / TF32 bounds {[(round(a, 4), round(b, 4)) for a, b in bulk_bounds]} ms); "
         f"retrieval_cand {retrieve_ms:.4f} ms; max_memory_allocated {peak / 1e9:.3f} GB")
+    n_bulk = shapes["serve_bulk"]["batch"]
+    log(f"[recsys] serve_bulk forward (CIN on split-TF32 tensor cores): "
+        f"{flops_share(model_flops_recsys(cfg, n_bulk, 'serve'), fwd_bulk, 'tf32', smi)}")
     # the kernel line's row: the largest layer (1) at serve_p99
     return [max(layer_rows, key=lambda r: r["bound_ms"])]
 
@@ -2296,7 +2317,7 @@ def greedy(fns, logits, cache, cfg, dev, n: int):
     return torch.cat(out, 1), grown, step_logits
 
 
-def phase_lm(dev) -> list[dict]:
+def phase_lm(dev, smi: str) -> list[dict]:
     import dataclasses
 
     from repro_torch.configs import gemma_2b, qwen2_72b
@@ -2510,6 +2531,8 @@ def phase_lm(dev) -> list[dict]:
     log(f"[lm] prefill {B} x {S}: {prefill_ms:.4f} ms ({B * S / prefill_ms * 1e3:.0f} tokens/s), "
         f"attention {n_prefill} x {ms:.4f} ms = {100 * n_prefill * ms / prefill_ms:.1f}% of it; "
         f"decode step (batch {B}, {S + T} slots): {decode_ms:.4f} ms")
+    log(f"[lm] prefill {B} x {S}: "
+        f"{flops_share(model_flops_lm(cfg, B, S, 'prefill'), prefill_ms, 'bfloat16', smi)}")
     log(f"[lm] prefill {profile_line(device_profile(lambda: fns['prefill'](tokens), reps=1))}")
     log(f"[lm] decode step "
         f"{profile_line(device_profile(lambda: fns['decode'](grown, last, S + T - 1)))}")
@@ -3023,23 +3046,28 @@ def resume_check(dev) -> str:
     root = ROOT / "build" / "train_ckpt"
     shutil.rmtree(root, ignore_errors=True)
 
-    def run(sub, fail_at=None):
+    def supervisor(sub, fail_at=None):
+        return TrainSupervisor(Checkpointer(root / sub, keep=2), ckpt_every=2,
+                               fail_at=dict(fail_at or {}))
+
+    def run(sup):
         model = Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(3),
                             device=dev)
         opt = optim.AdamWConfig(quantize_moments=True)
         step_fn, params = supervised(model, make_train_step(cfg, opt, total_steps=6, warmup=1))
-        sup = TrainSupervisor(Checkpointer(root / sub, keep=2), ckpt_every=2,
-                              fail_at=dict(fail_at or {}))
         return sup.run(state=(params, optim.init(opt, params)), step_fn=step_fn,
                        batch_fn=lambda s: lm_batch(cfg, 4, 64, seed=0, step=s), n_steps=6)
 
-    want, hist = run("whole")
+    want, hist = run(supervisor("whole"))
+    cut = supervisor("cut", {3: SimulatedPreemption})
     try:
-        run("cut", {3: SimulatedPreemption})
+        run(cut)
         fail("[train] resume: the injected preemption did not stop the run")
     except SimulatedPreemption:
         pass
-    got, hist2 = run("cut")
+    # the restart is a fresh supervisor over the same directory, as a
+    # restarted process would be: it sees only what is on disk
+    got, hist2 = run(supervisor("cut"))
     if [h["step"] for h in hist2] != [2, 3, 4, 5]:
         fail(f"[train] resume: resumed at {[h['step'] for h in hist2]}, not [2, 3, 4, 5]")
     a, b = flatten_with_paths(want), flatten_with_paths(got)
@@ -3098,7 +3126,7 @@ def layer_grad_check(model, tokens) -> str:
             f"{STEP0_TOL['layer_input_grad']:g})")
 
 
-def phase_train(dev, mb_host) -> None:
+def phase_train(dev, mb_host, smi: str) -> None:
     import dataclasses
 
     from repro_torch import optim
@@ -3157,6 +3185,8 @@ def phase_train(dev, mb_host) -> None:
     log(f"[train] gemma-2b step ms {[round(t, 4) for t in r['times']]}: median of steps 1-"
         f"{n_steps - 1} {r['median']:.4f} ms, {B * S / r['median'] * 1e3:.0f} tokens/s; peak "
         f"max_memory_allocated {r['peak']:.3f} GB")
+    log(f"[train] gemma-2b step (6·N·D, remat's second forward not counted): "
+        f"{flops_share(model_flops_lm(cfg, B, S, 'train'), r['median'], 'bfloat16', smi)}")
     log(f"[train] gemma-2b step 0, kernels='cuda' vs 'torch' (same weights and batch): loss "
         f"{r['metrics'][0]['loss']:.6f} vs {plain0['loss']:.6f} (rel {rel0['loss']:.3e}, tol "
         f"{STEP0_TOL['loss']:g}); grad_norm at full depth {r['metrics'][0]['grad_norm']:.6e} "
@@ -3277,6 +3307,110 @@ def phase_train(dev, mb_host) -> None:
 
 
 # ------------------------------------------------------------------- main
+# each contracted op (and mask_to_host) → the C entry points its call may
+# launch; attention takes the route of its example's dtype and shape
+CONTRACT_KERNELS = {
+    "bitset_pack": ("bitset_pack",), "bitset_unpack": ("bitset_unpack",),
+    "bitset_lookup": ("bitset_lookup",), "bitset_build": ("bitset_build",),
+    "candidate_filter": ("candidate_filter",), "stwig_expand": ("stwig_expand",),
+    "hash_join_probe": ("hash_join_probe",), "cin_layer": ("cin_layer",),
+    "segment_mp": ("segment_mp",), "mask_to_host": ("bitset_pack",),
+    "flash_attention": ("flash_attention", "flash_attention_tc", "flash_attention_tf32"),
+}
+
+
+def phase_analysis(smi: str) -> None:
+    """[analysis]: the port's static analyzer (`repro_torch.analysis`) on the
+    card, every pass on, over the CUDA kernels: zero findings, each
+    contracted op's kernel launched in the contract pass and the matcher's
+    five in each engine's probe; then each probe step's cost-model peak
+    beside the card's own count, and the engines' rooflines."""
+    from repro_torch.analysis import roofline
+    from repro_torch.analysis.staticcheck import costmodel, run_all
+    from repro_torch.core.backend import op_contracts
+    from repro_torch.kernels import cuda
+
+    t0 = time.perf_counter()
+    reports: dict = {}
+    cuda.reset_launch_counts()
+    findings = run_all(ROOT, device="cuda", kernel_backends=("cuda",), reports=reports)
+    torch.cuda.synchronize()
+    for f in findings:
+        log(f"[analysis] finding: {f}")
+    if findings:
+        fail(f"[analysis] {len(findings)} finding(s) on the cuda backend")
+    launches = reports["launches"]
+    ops = [c.op for c in op_contracts("cuda")] + ["mask_to_host"]
+    for op in ops:
+        if not any(launches["contracts"].get(sym, 0) > 0 for sym in CONTRACT_KERNELS[op]):
+            fail(f"[analysis] the contract pass launched no kernel of {op}: {launches['contracts']}")
+    for eng in ("local", "sharded"):
+        got = launches[f"engine:{eng}:cuda"]
+        for sym in MATCHER_KERNELS:
+            if got.get(sym, 0) <= 0:
+                fail(f"[analysis] the {eng} probe launched no {sym}: {got}")
+    log(f"[analysis] run_all(device='cuda', kernel_backends=('cuda',)): 0 findings; launches "
+        f"{launches}")
+    syncs = {s["target"]: s["host_syncs"] for s in reports["steps"]}
+    for t in reports["traces"]:
+        if not t.call or t.kernels != "cuda":
+            continue
+        fn, args, kwargs = t.call
+        seen, arg_bytes = set(), 0
+        for a in t.log.args:
+            if a.storage not in seen:
+                seen.add(a.storage)
+                arg_bytes += a.nbytes
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() - base + arg_bytes
+        del out
+        est = costmodel.estimate(t.log, t.target, t.collectives)
+        log(f"[analysis] {t.target}: cost-model peak "
+            f"{est.peak_bytes:.0f} B, max_memory_allocated over the step + its arguments "
+            f"{step_peak} B (arguments {arg_bytes} B); {est.flops:.6g} operations, "
+            f"{est.collective_bytes:.6g} collective bytes; {len(t.log.ops)} ops, "
+            f"{syncs.get(t.target, 0)} host syncs")
+    rl = roofline.engine_rooflines(traces=[t for t in reports["traces"] if t.kernels == "cuda"])
+    for target, r in rl.items():
+        log(f"[analysis] roofline {target}: compute {r.t_compute * 1e6:.4f} us, memory "
+            f"{r.t_memory * 1e6:.4f} us, collective {r.t_collective * 1e6:.4f} us -> "
+            f"{r.bottleneck}, fraction {r.roofline_fraction:.4f} ({smi})")
+    log(f"[analysis] {retry_pricing_line()}")
+    log(f"[analysis] phase {time.perf_counter() - t0:.1f} s")
+
+
+def retry_pricing_line() -> str:
+    """The host time of the adaptive retry's pricing: `plan_caps_bytes` (the
+    cost model's peak of the join run on meta tensors) at each escalation
+    from the default caps to the first past the ceiling, first sight and a
+    second call. A cap an earlier phase already priced is marked cached."""
+    from repro_torch.runtime import resilience
+
+    caps = {"child_cap": 8, "join_rows_cap": 1 << 16, "join_dup_cap": 64}
+    ceiling = resilience.retry_ceiling_bytes()
+    parts = []
+    while True:
+        key = (caps["join_rows_cap"], caps["join_dup_cap"], 4)
+        cached = key in resilience._COST_CACHE
+        t = time.perf_counter()
+        est = resilience.plan_caps_bytes(caps)
+        first = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        resilience.plan_caps_bytes(caps)
+        again = (time.perf_counter() - t) * 1e3
+        parts.append(f"{key[0]} x {key[1]}: {est / 1e9:.4f} GB, {first:.3f} ms"
+                     f"{' (cached)' if cached else ''}, again {again:.4f} ms")
+        if est > ceiling or len(parts) > 8:
+            break
+        caps = resilience.grow_caps(caps)
+    return (f"retry pricing (host, meta tensors) to the {ceiling / 1e9:g} GB ceiling: "
+            + "; ".join(parts))
+
+
 def main() -> None:
     name, smi = phase_device()
     from repro_torch.api import GraphSession
@@ -3391,7 +3525,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 8: xDeepFM serving at its published widths -------------------
-    kernel_rows += phase_recsys(dev)
+    kernel_rows += phase_recsys(dev, smi)
     torch.cuda.empty_cache()
 
     # ---- phase 9: GNN inference on an ogbn-products-shaped graph ------------
@@ -3403,15 +3537,20 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 11: gemma-2b prefill and decode at its published widths ------
-    kernel_rows += phase_lm(dev)
+    kernel_rows += phase_lm(dev, smi)
 
     # ---- phase 12: deepseek-v3 and mixtral-8x22b, published widths, cut depth
     phase_moe_mla(dev)
     torch.cuda.empty_cache()
 
     # ---- phase 13: training -- gemma-2b at full width, xDeepFM, GatedGCN ---
-    phase_train(dev, mb_host)
+    phase_train(dev, mb_host, smi)
     del mb_host
+    torch.cuda.empty_cache()
+
+    # ---- [analysis]: the static analyzer's five passes on the card, last, so
+    # the main path's first calls are as cold as before it was added ---------
+    phase_analysis(smi)
     if sorted(r["name"] for r in kernel_rows) != sorted(KERNEL_INFO):
         fail(f"the kernel line has {[r['name'] for r in kernel_rows]}, not {list(KERNEL_INFO)}")
 

@@ -1,9 +1,16 @@
-"""Config dataclasses, copied from the JAX package's ``configs/base.py``:
-only what a ported model path reads (the LM, GNN and recsys families),
-field for field, so that a config is the JAX package's."""
+"""Config dataclasses and the architecture registry, copied from the JAX
+package's ``configs/base.py`` field for field, so that a config is the JAX
+package's.
+
+Every architecture registers an `ArchEntry` from its module in
+``repro_torch/configs/<id>.py``; launchers select with ``--arch <id>``
+(`get`, `all_archs`). `LMConfig.n_params` and `n_active_params` give the
+parameter counts that `repro_torch.analysis.roofline`'s model FLOPs read.
+"""
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 
 # --------------------------------------------------------------------- LM
@@ -59,6 +66,59 @@ class LMConfig:
     decode_kv_blocks: int = 1        # split-KV decode blocks (1 = one softmax)
     inference_param_sharding: str = "fsdp"  # fsdp | tp_replicated
 
+    @property
+    def attn_kind(self) -> str:
+        return "mla" if self.mla is not None else "gqa"
+
+    def _emb_attn(self) -> tuple[int, int]:
+        """Embedding and one layer's attention parameters."""
+        d = self.d_model
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.mla is not None:
+            m = self.mla
+            attn = (
+                d * m.q_lora_rank
+                + m.q_lora_rank * self.n_heads * (m.d_nope + m.d_rope)
+                + d * (m.kv_lora_rank + m.d_rope)
+                + m.kv_lora_rank * self.n_heads * (m.d_nope + m.d_v)
+                + self.n_heads * m.d_v * d
+            )
+        else:
+            attn = d * self.n_heads * self.d_head + 2 * d * self.n_kv_heads * self.d_head
+            attn += self.n_heads * self.d_head * d
+        return emb, attn
+
+    def n_params(self) -> int:
+        """Approximate parameter count (for roofline MODEL_FLOPS)."""
+        d, L = self.d_model, self.n_layers
+        emb, attn = self._emb_attn()
+        if self.moe is not None:
+            moe = self.moe
+            dense_layers = moe.first_k_dense
+            moe_layers = L - dense_layers
+            ff = dense_layers * 3 * d * (moe.d_ff_dense or self.d_ff)
+            ff += moe_layers * (
+                (moe.n_experts + moe.n_shared) * 3 * d * moe.d_ff_expert
+                + d * moe.n_experts
+            )
+        else:
+            mult = 3 if self.act in ("swiglu", "geglu") else 2
+            ff = L * mult * d * self.d_ff
+        return emb + L * attn + ff
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed-to experts)."""
+        if self.moe is None:
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        moe = self.moe
+        emb, attn = self._emb_attn()
+        dense_layers = moe.first_k_dense
+        moe_layers = L - dense_layers
+        ff = dense_layers * 3 * d * (moe.d_ff_dense or self.d_ff)
+        ff += moe_layers * (moe.top_k + moe.n_shared) * 3 * d * moe.d_ff_expert
+        return emb + L * attn + ff
+
 
 @dataclasses.dataclass(frozen=True)
 class GNNConfig:
@@ -96,3 +156,34 @@ class RecSysConfig:
     mlp_layers: tuple[int, ...] = (400, 400)
     bag_size: int = 1                # multi-hot bag length (EmbeddingBag)
     dtype: str = "float32"
+
+
+# --------------------------------------------------------------- registry
+@dataclasses.dataclass(frozen=True)
+class ArchEntry:
+    arch_id: str
+    family: str                             # lm | gnn | recsys | stwig
+    config: Any
+    smoke: Callable[[], Any]                # reduced config for CPU smoke
+    shapes: tuple[str, ...]                 # assigned input-shape ids
+    skipped_shapes: tuple[tuple[str, str], ...] = ()  # (shape, reason)
+
+
+_REGISTRY: dict[str, ArchEntry] = {}
+
+
+def register(entry: ArchEntry) -> ArchEntry:
+    _REGISTRY[entry.arch_id] = entry
+    return entry
+
+
+def get(arch_id: str) -> ArchEntry:
+    if arch_id not in _REGISTRY:
+        import repro_torch.configs  # noqa: F401  (populate registry)
+    return _REGISTRY[arch_id]
+
+
+def all_archs() -> dict[str, ArchEntry]:
+    import repro_torch.configs  # noqa: F401
+
+    return dict(_REGISTRY)

@@ -6,7 +6,7 @@ routed top-8 sigmoid router w/ aux-free bias + group-limited routing
 671,129,186,816 parameters, 1,342.5 GB in bf16, so one card serves it cut
 in depth only (``chip_smoke.py`` runs its 3 dense layers and 2 MoE layers,
 all 256 experts, at full width: 26,721,155,584 parameters, 53.4 GB)."""
-from repro_torch.configs.base import LMConfig, MLAConfig, MoEConfig
+from repro_torch.configs.base import ArchEntry, LMConfig, MLAConfig, MoEConfig, register
 
 CONFIG = LMConfig(
     name="deepseek-v3-671b",
@@ -63,3 +63,16 @@ def smoke() -> LMConfig:
         ),
         mtp_depth=1,
     )
+
+
+ENTRY = register(
+    ArchEntry(
+        arch_id="deepseek-v3-671b",
+        family="lm",
+        config=CONFIG,
+        smoke=smoke,
+        # long_500k runs: MLA latent KV cache (576/token) makes 500k-context
+        # decode practical; per-step attention is O(L·d_c)
+        shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    )
+)

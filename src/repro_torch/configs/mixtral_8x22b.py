@@ -4,7 +4,7 @@ vocab=32768, MoE 8 experts top-2, sliding-window attention
 140,630,071,296 parameters, 281.3 GB in bf16, so one card serves it cut in
 depth only (``chip_smoke.py`` runs 4 of its 56 layers at full width:
 10,418,903,040 parameters, 20.8 GB)."""
-from repro_torch.configs.base import LMConfig, MoEConfig
+from repro_torch.configs.base import ArchEntry, LMConfig, MoEConfig, register
 
 CONFIG = LMConfig(
     name="mixtral-8x22b",
@@ -36,3 +36,15 @@ def smoke() -> LMConfig:
         dtype="float32",
         moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64, capacity_factor=2.0),
     )
+
+
+ENTRY = register(
+    ArchEntry(
+        arch_id="mixtral-8x22b",
+        family="lm",
+        config=CONFIG,
+        smoke=smoke,
+        # long_500k runs: SWA bounds the attention window (sub-quadratic)
+        shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    )
+)

@@ -2,7 +2,7 @@
 vocab=152064 — QKV bias [hf:Qwen/Qwen1.5-110B; hf]. The JAX package's
 ``configs/qwen1_5_110b.py``: 111,209,914,368 parameters, 222.4 GB in bf16,
 so it does not fit on one card: the port runs its smoke config."""
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import ArchEntry, LMConfig, register
 
 CONFIG = LMConfig(
     name="qwen1.5-110b",
@@ -32,3 +32,17 @@ def smoke() -> LMConfig:
         qkv_bias=True,
         dtype="float32",
     )
+
+
+ENTRY = register(
+    ArchEntry(
+        arch_id="qwen1.5-110b",
+        family="lm",
+        config=CONFIG,
+        smoke=smoke,
+        shapes=("train_4k", "prefill_32k", "decode_32k"),
+        skipped_shapes=(
+            ("long_500k", "pure full-attention arch (no sub-quadratic mechanism); skipped per brief"),
+        ),
+    )
+)

@@ -3,7 +3,7 @@ vocab=152064 — GQA, QKV bias [arXiv:2407.10671; hf]. The JAX package's
 ``configs/qwen2_72b.py``. At 145 GB in bf16 it does not fit on one card: the
 port runs its smoke config on the CPU and its attention heads (64 on 8,
 head_dim 128) in the kernel checks, never its full width."""
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import ArchEntry, LMConfig, register
 
 CONFIG = LMConfig(
     name="qwen2-72b",
@@ -33,3 +33,17 @@ def smoke() -> LMConfig:
         qkv_bias=True,
         dtype="float32",
     )
+
+
+ENTRY = register(
+    ArchEntry(
+        arch_id="qwen2-72b",
+        family="lm",
+        config=CONFIG,
+        smoke=smoke,
+        shapes=("train_4k", "prefill_32k", "decode_32k"),
+        skipped_shapes=(
+            ("long_500k", "pure full-attention arch (no sub-quadratic mechanism); skipped per brief"),
+        ),
+    )
+)

@@ -1,5 +1,5 @@
 """The paper's own system config: graph workload + engine capacities — the
-JAX package's ``configs/stwig.py`` (the port's configs have no registry).
+JAX package's ``configs/stwig.py``.
 
 `CONFIG` is the paper's default run (§6.3): 64,000,000 nodes over 256
 shards, 250,000 nodes a shard. The sharded engine
@@ -7,6 +7,8 @@ shards, 250,000 nodes a shard. The sharded engine
 that shard size by cutting a graph of N nodes into about ``N / 250,000``
 shards."""
 import dataclasses
+
+from repro_torch.configs.base import ArchEntry, register
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,3 +32,14 @@ def smoke() -> STwigConfig:
         name="stwig-smoke", n_nodes=2_000, avg_degree=8, n_labels=8,
         n_shards=4, query_nodes=6, query_edges=8,
     )
+
+
+ENTRY = register(
+    ArchEntry(
+        arch_id="stwig",
+        family="stwig",
+        config=CONFIG,
+        smoke=smoke,
+        shapes=("paper_default",),
+    )
+)

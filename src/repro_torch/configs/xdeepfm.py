@@ -2,7 +2,7 @@
 MLP 400-400 [arXiv:1803.05170] — the JAX package's ``configs/xdeepfm.py``.
 
 Its serving shapes (``src/repro/extras/shapes.py``): ``SERVE_SHAPES``."""
-from repro_torch.configs.base import RecSysConfig
+from repro_torch.configs.base import ArchEntry, RecSysConfig, register
 
 CONFIG = RecSysConfig(
     name="xdeepfm",
@@ -31,3 +31,14 @@ def smoke() -> RecSysConfig:
         mlp_layers=(16, 16),
         bag_size=3,
     )
+
+
+ENTRY = register(
+    ArchEntry(
+        arch_id="xdeepfm",
+        family="recsys",
+        config=CONFIG,
+        smoke=smoke,
+        shapes=("train_batch", "serve_p99", "serve_bulk", "retrieval_cand"),
+    )
+)

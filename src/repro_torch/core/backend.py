@@ -25,9 +25,12 @@ Registered backends:
   * ``"auto"``  — ``"cuda"`` for a CUDA device, ``"torch"`` otherwise
     (`resolve_kernels`).
 
+Further backends register with `register_backend`; `available_backends`
+lists them, and `op_contracts` gives the contracts each was bound to.
+
 The op contract is the JAX package's (``src/repro/core/backend.py``): ids
 are int32, flags are bool, and bitset words are 32-bit — held as
-``torch.int32`` bit patterns, since PyTorch's uint32 support is thin.
+``torch.int32`` bit patterns, since PyTorch has no uint32 arithmetic.
 `OP_CONTRACTS` states each op's example inputs and output dtypes.
 """
 from __future__ import annotations
@@ -71,8 +74,11 @@ def resolve_device(device) -> torch.device:
 class OpContract:
     """The shape/dtype contract of one `Kernels` op, as the JAX package
     declares it: ``make_args(device)`` returns ``(args, kwargs)`` of small
-    example inputs, and every backend's outputs must have ``out_dtypes``
-    (the JAX package's uint32 words are ``torch.int32`` bit patterns)."""
+    example inputs, and every backend's outputs must have ``out_dtypes``.
+
+    The declared dtypes are the port's own where torch differs: the JAX
+    package's uint32 bitset words are ``torch.int32`` bit patterns here,
+    because torch has no uint32 arithmetic (no shifts, no ORs on uint32)."""
 
     op: str
     make_args: Callable[[torch.device], tuple[tuple, dict]]
@@ -85,6 +91,9 @@ def _ex(shape, dtype, device):
 
 _I32, _BOOL, _F32 = torch.int32, torch.bool, torch.float32
 
+# the JAX package's contracts, in the port's dtypes: bitset words are int32
+# bit patterns where the JAX package declares uint32 (torch has no uint32
+# arithmetic); every other dtype is the JAX package's
 OP_CONTRACTS: tuple[OpContract, ...] = (
     OpContract("bitset_pack", lambda dev: ((_ex((64,), _BOOL, dev),), {}), (_I32,)),
     OpContract("bitset_unpack", lambda dev: ((_ex((2,), _I32, dev),), {}), (_BOOL,)),
@@ -251,8 +260,35 @@ class CudaKernels(Kernels):
 
 
 # ------------------------------------------------------------------ registry
-_REGISTRY: dict[str, Callable[[], Kernels]] = {"torch": Kernels, "cuda": CudaKernels}
+_REGISTRY: dict[str, Callable[[], Kernels]] = {}
 _INSTANCES: dict[str, Kernels] = {}
+_CONTRACTS: dict[str, tuple[OpContract, ...]] = {}
+
+
+def register_backend(
+    name: str,
+    factory: Callable[[], Kernels],
+    *,
+    contracts: tuple[OpContract, ...] = OP_CONTRACTS,
+) -> None:
+    """Register a kernel backend under ``name`` (factory called lazily,
+    once), selectable by name through `GraphSession.open(kernels=...)`.
+
+    Every registered backend is bound to a tuple of `OpContract`s (default:
+    `OP_CONTRACTS`) that `repro_torch.analysis.staticcheck` runs and checks
+    — a backend that adds ops passes an extended tuple so the new ops are
+    checked too."""
+    _REGISTRY[name] = factory
+    _INSTANCES.pop(name, None)
+    _CONTRACTS[name] = contracts
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+def _unknown(name: str) -> ValueError:
+    return ValueError(f"unknown kernel backend {name!r}; registered: {available_backends()}")
 
 
 def get_kernels(name: str) -> Kernels:
@@ -260,21 +296,16 @@ def get_kernels(name: str) -> Kernels:
     inst = _INSTANCES.get(name)
     if inst is None:
         if name not in _REGISTRY:
-            raise ValueError(
-                f"unknown kernel backend {name!r}; registered: {tuple(_REGISTRY)}"
-            )
+            raise _unknown(name)
         inst = _INSTANCES[name] = _REGISTRY[name]()
     return inst
 
 
 def op_contracts(name: str) -> tuple[OpContract, ...]:
-    """The contracts of backend ``name``. It mirrors the JAX package's
-    `op_contracts`, where a backend may register contracts of its own; no
-    backend of the port does, so every registered name gets `OP_CONTRACTS`
-    and the argument only checks that the name is registered."""
-    if name not in _REGISTRY:
-        raise ValueError(f"unknown kernel backend {name!r}; registered: {tuple(_REGISTRY)}")
-    return OP_CONTRACTS
+    """The contract set `register_backend` bound to backend ``name``."""
+    if name not in _CONTRACTS:
+        raise _unknown(name)
+    return _CONTRACTS[name]
 
 
 def resolve_kernels(spec: "str | Kernels | None", device: torch.device) -> Kernels:
@@ -300,3 +331,7 @@ def rank_select(mask: torch.Tensor, lo: int, n: int) -> torch.Tensor:
     incl = torch.cumsum(mask.to(torch.int64), 0)
     want = torch.arange(lo + 1, lo + n + 1, dtype=torch.int64, device=mask.device)
     return torch.searchsorted(incl, want, side="left")
+
+
+register_backend("torch", Kernels)
+register_backend("cuda", CudaKernels)

@@ -20,23 +20,45 @@ over that dimension:
     reference's forward and backward ``ppermute`` rings deliver them;
   * `fetch_load_set` — the one dispatch point between the two;
   * `pmax` — a max over dim 0.
+
+Every collective reports its call to `recorder` when one is installed: the
+staticcheck pass `repro_torch.analysis.staticcheck.collective_safety`
+checks that each call takes all S shards on dim 0, that the ring's source
+maps are permutations, and that no fetch operand derives from the head
+STwig table (Theorem 5).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+# staticcheck hook: called as recorder(name, operands, result, info) after
+# every collective call — ``operands`` maps each tensor operand's name to
+# it, ``info`` holds the call's static structure (None = disabled)
+recorder: Callable[..., None] | None = None
+
+
+def _note(name: str, operands: dict, result, **info) -> None:
+    if recorder is not None:
+        recorder(name, operands, result, info)
 
 
 def or_allreduce(words: torch.Tensor) -> torch.Tensor:
     """``words (S, …)`` → the OR over the shards, shaped ``words[0]``."""
+    stacked = words
     while words.shape[0] > 1:
         h = words.shape[0] // 2
         words = torch.cat([words[:h] | words[h : 2 * h], words[2 * h :]])
+    _note("or_allreduce", {"words": stacked}, words[0])
     return words[0]
 
 
 def pmax(x: torch.Tensor) -> torch.Tensor:
     """``x (S, …)`` → the max over the shards (bool: any)."""
-    return x.any(dim=0) if x.dtype == torch.bool else x.amax(dim=0)
+    out = x.any(dim=0) if x.dtype == torch.bool else x.amax(dim=0)
+    _note("pmax", {"x": x}, out)
+    return out
 
 
 def gather_load_set(
@@ -48,6 +70,7 @@ def gather_load_set(
     S, cap = valid.shape
     flat = cols.reshape(S * cap, cols.shape[-1])
     mask = valid.reshape(1, S * cap) & load.repeat_interleave(cap, dim=1)
+    _note("gather_load_set", {"cols": cols, "valid": valid, "load": load}, (flat, mask))
     return flat, mask
 
 
@@ -65,14 +88,19 @@ def gather_load_set_ring(
     a shift ``s`` hands shard ``k`` the table of shard ``(k − s) mod S``."""
     S = valid.shape[0]
     k = torch.arange(S, device=valid.device)
-    outs_c, outs_v = [], []
+    outs_c, outs_v, sources = [], [], []
     h = min(max_dist, (S - 1) // 2)
-    for s in [0] + [x for d in range(1, h + 1) for x in (d, -d)]:
+    shifts = [0] + [x for d in range(1, h + 1) for x in (d, -d)]
+    for s in shifts:
         src = (k - s) % S
+        sources.append(src)
         outs_c.append(torch.roll(cols, s, dims=0) if s else cols)
         rolled = torch.roll(valid, s, dims=0) if s else valid
         outs_v.append(rolled & load[k, src][:, None])
-    return torch.cat(outs_c, dim=1), torch.cat(outs_v, dim=1)
+    out = torch.cat(outs_c, dim=1), torch.cat(outs_v, dim=1)
+    _note("gather_load_set_ring", {"cols": cols, "valid": valid, "load": load}, out,
+          shifts=tuple(shifts), sources=tuple(sources))
+    return out
 
 
 def fetch_load_set(
@@ -88,5 +116,9 @@ def fetch_load_set(
     ``valid`` of shape ``(S, n)``: ``cols`` is ``(n, w)``, shared by every
     shard, after the all-gather and ``(S, n, w)`` after the ring."""
     if ring_radius is not None:
-        return gather_load_set_ring(cols, valid, load, ring_radius)
-    return gather_load_set(cols, valid, load)
+        out = gather_load_set_ring(cols, valid, load, ring_radius)
+    else:
+        out = gather_load_set(cols, valid, load)
+    _note("fetch_load_set", {"cols": cols, "valid": valid, "load": load}, out,
+          ring_radius=ring_radius)
+    return out

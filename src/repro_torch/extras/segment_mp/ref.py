@@ -13,9 +13,10 @@ def segment_mp_reference(
 ) -> torch.Tensor:
     """``messages (E, d)``, ``dst (E,)`` int → ``(n_nodes, d)``:
     row ``v`` is the sum of the messages whose ``dst`` is ``v``."""
-    out = torch.zeros((n_nodes, messages.shape[1]), dtype=messages.dtype,
+    # an id out of range lands in a spare last row, which is cut off: no
+    # host sync to ask whether any id is out of range
+    out = torch.zeros((n_nodes + 1, messages.shape[1]), dtype=messages.dtype,
                       device=messages.device)
     keep = (dst >= 0) & (dst < n_nodes)
-    if bool(keep.all()):  # no copy of the messages when every id is in range
-        return out.index_add_(0, dst.long(), messages)
-    return out.index_add_(0, dst[keep].long(), messages[keep])
+    idx = torch.where(keep, dst, n_nodes).long()
+    return out.index_add_(0, idx, messages)[:n_nodes]

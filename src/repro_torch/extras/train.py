@@ -19,18 +19,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs import (
-    deepseek_v3_671b,
-    egnn,
-    gatedgcn,
-    gemma_2b,
-    gin_tu,
-    meshgraphnet,
-    mixtral_8x22b,
-    qwen1_5_110b,
-    qwen2_72b,
-    xdeepfm,
-)
+from repro_torch import configs
 from repro_torch.configs.base import GNNConfig, LMConfig, RecSysConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.data import pipeline as data
@@ -42,18 +31,21 @@ from repro_torch.runtime import TrainSupervisor
 from repro_torch.train import make_train_step
 from repro_torch.train.step import supervised
 
-ARCHS = {m.CONFIG.name: m for m in (
-    gemma_2b, qwen2_72b, mixtral_8x22b, deepseek_v3_671b, qwen1_5_110b,
-    gin_tu, gatedgcn, egnn, meshgraphnet, xdeepfm)}
+# the families the launcher trains; ``--arch`` is a registered arch id
+TRAINED_FAMILIES = ("lm", "gnn", "recsys")
+
+
+def trainable_archs() -> list[str]:
+    return sorted(a for a, e in configs.all_archs().items() if e.family in TRAINED_FAMILIES)
 
 
 def build(arch: str, *, smoke: bool, batch: int, seq: int, seed: int, device=None):
     """``(cfg, model, batch_fn)``: the model drawn from ``seed`` on
     ``device``, and ``batch_fn(step)`` the step's numpy batch."""
-    if arch not in ARCHS:
-        raise SystemExit(f"unknown --arch {arch!r}; one of {sorted(ARCHS)}")
-    entry = ARCHS[arch]
-    cfg = entry.smoke() if smoke else entry.CONFIG
+    if arch not in trainable_archs():
+        raise SystemExit(f"unknown --arch {arch!r}; one of {trainable_archs()}")
+    entry = configs.get(arch)
+    cfg = entry.smoke() if smoke else entry.config
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if isinstance(cfg, LMConfig):

@@ -14,23 +14,18 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.api import GraphSession, summarize_outcomes
-from repro_torch.configs import (
-    deepseek_v3_671b,
-    gemma_2b,
-    mixtral_8x22b,
-    qwen1_5_110b,
-    qwen2_72b,
-    stwig,
-)
 from repro_torch.core.backend import resolve_device
 from repro_torch.graphstore import generators
 from repro_torch.models.transformer import Transformer, init_cache
 from repro_torch.train.step import make_serve_fns
 from repro_torch.workloads import mixed_workload
 
-LM_CONFIGS = {m.CONFIG.name: m for m in (
-    gemma_2b, qwen2_72b, mixtral_8x22b, deepseek_v3_671b, qwen1_5_110b)}
+
+def lm_archs() -> list[str]:
+    """The registered LM arch ids (``--arch`` values other than ``stwig``)."""
+    return sorted(a for a, e in configs.all_archs().items() if e.family == "lm")
 
 
 def _sync(dev: torch.device) -> None:
@@ -39,7 +34,8 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve_stwig(args) -> None:
-    cfg = stwig.smoke() if args.smoke else stwig.CONFIG
+    entry = configs.get("stwig")
+    cfg = entry.smoke() if args.smoke else entry.config
     n = min(cfg.n_nodes, args.max_nodes)
     print(f"loading {n}-node graph ...")
     g = generators.rmat(n, cfg.avg_degree * n, cfg.n_labels, seed=0)
@@ -76,9 +72,9 @@ def serve_stwig(args) -> None:
 
 
 def serve_lm(args) -> None:
-    if args.arch not in LM_CONFIGS:
-        raise SystemExit(f"unknown --arch {args.arch!r}; stwig or one of {sorted(LM_CONFIGS)}")
-    cfg = LM_CONFIGS[args.arch].smoke()
+    if args.arch not in lm_archs():
+        raise SystemExit(f"unknown --arch {args.arch!r}; stwig or one of {lm_archs()}")
+    cfg = configs.get(args.arch).smoke()
     dev = resolve_device(args.device)
     gen = torch.Generator().manual_seed(0)
     fns = make_serve_fns(cfg, Transformer(cfg, generator=gen, device=dev))

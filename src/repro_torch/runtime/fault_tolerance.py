@@ -73,7 +73,9 @@ class TrainSupervisor:
         """Run to ``n_steps``, resuming from the latest checkpoint if any
         (its leaves on ``device``, or where ``state``'s lie). Returns
         ``(state, history)``. Raises `SimulatedPreemption` out of the loop
-        when injected — callers re-invoke ``run`` to model a restart."""
+        when injected — callers re-invoke ``run`` to model a restart. No
+        exception leaves before the in-flight save is on disk, so a restart
+        through a fresh `Checkpointer` finds it."""
         latest = self.checkpointer.latest_step()
         step = 0
         if start_step is not None:
@@ -83,20 +85,22 @@ class TrainSupervisor:
             step = latest
         history: list[dict] = []
         ewma = None
-        while step < n_steps:
-            if step in self.fail_at:
-                raise self.fail_at.pop(step)()
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch_fn(step), step)
-            _sync(state)
-            dt = time.perf_counter() - t0
-            ewma, straggling = straggler_update(ewma, dt, self.straggler_factor)
-            history.append({"step": step, "dt": dt, "straggler_flag": straggling,
-                            **{k: float(v) for k, v in metrics.items()}})
-            step += 1
-            if step % self.ckpt_every == 0 or step == n_steps:
-                self.checkpointer.save(step, state)
-        self.checkpointer.wait()
+        try:
+            while step < n_steps:
+                if step in self.fail_at:
+                    raise self.fail_at.pop(step)()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch_fn(step), step)
+                _sync(state)
+                dt = time.perf_counter() - t0
+                ewma, straggling = straggler_update(ewma, dt, self.straggler_factor)
+                history.append({"step": step, "dt": dt, "straggler_flag": straggling,
+                                **{k: float(v) for k, v in metrics.items()}})
+                step += 1
+                if step % self.ckpt_every == 0 or step == n_steps:
+                    self.checkpointer.save(step, state)
+        finally:
+            self.checkpointer.wait()
         return state, history
 
 

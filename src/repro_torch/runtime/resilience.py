@@ -15,13 +15,12 @@ query path calls:
   * `adaptive_run` — the one retry loop the engine and
     `CompiledQuery.run` share; `stage` — per-stage wall times.
 
-The JAX package prices cap growth by tracing the join with
-``jax.make_jaxpr`` and scoring the trace with its cost model. The port
-counts the bytes of the escalated join's buffers analytically instead
-(`join_cost_bytes`); the estimate grows with ``join_rows_cap ×
-join_dup_cap``. The ceiling is `MEMORY_CEILING_BYTES`, the value the JAX
-package keeps in ``analysis/budgets.json``; `retry_ceiling_bytes` reads a
-budgets dict of that file's shape when a caller has one.
+Cap growth is priced as the JAX package prices it, with the staticcheck
+cost model: `join_cost_bytes` runs the escalated join on ``meta`` tensors
+under the op recorder and takes the peak of its storages' lifetimes (the
+JAX package traces it with ``jax.make_jaxpr``); the estimate grows with
+``join_rows_cap × join_dup_cap``. The ceiling, `retry_ceiling_bytes`, is
+the ``retry`` section of the port's ``analysis/budgets.json``.
 """
 from __future__ import annotations
 
@@ -86,32 +85,69 @@ def grow_caps(caps: dict) -> dict:
 
 # ----------------------------------------------------------- cost estimates
 
-# the cap-growth ceiling: ``retry.memory_ceiling_bytes`` of the JAX
-# package's ``analysis/budgets.json``, kept here as the port's own constant
+# the cap-growth ceiling when no budgets dict is given and the port's
+# ``analysis/budgets.json`` has no ``retry`` section: its
+# ``retry.memory_ceiling_bytes``, as the JAX package's
 MEMORY_CEILING_BYTES = 16e9
 
 # canonical probe shape, as the JAX package prices it: two width-4 tables
 # sharing one query node. Per-query widths vary by a column or two; the
 # caps vary by 2**r.
 _PROBE_WIDTH = 4
+_COST_CACHE: dict[tuple[int, int, int], float] = {}
 
 
 def join_cost_bytes(out_cap: int, dup_cap: int, width: int = _PROBE_WIDTH) -> float:
-    """Bytes live at the peak of one `sort_merge_join` of two ``out_cap``-row
-    tables of ``width`` columns, counted from the join's own buffers.
+    """Peak live bytes of one `sort_merge_join` of two ``out_cap``-row
+    tables of ``width`` columns, from the staticcheck cost model's storage
+    liveness over the join run on ``meta`` tensors — shapes only: nothing
+    is computed and no device memory is touched."""
+    key = (int(out_cap), int(dup_cap), int(width))
+    hit = _COST_CACHE.get(key)
+    if hit is not None:
+        return hit
+    import torch
 
-    The peak is where the merged rows are built: every probe pair
-    (``out_cap * dup_cap`` of them) holds its hit flag (1 B), its int32 and
-    int64 build-row index (12 B), the gathered build row and the repeated
-    probe columns (``4 * (2w - 1)`` B) and the merged row (``4 * (2w - 1)``
-    B). Beside them live the two input tables, the sorted build side with
-    its keys and permutation, and the output table."""
+    from repro_torch.analysis.staticcheck import costmodel, oplog
+    from repro_torch.core import join as join_lib
+
     w = max(2, int(width))
-    wm = 2 * w - 1
-    pairs = float(out_cap) * float(dup_cap)
-    per_pair = 1 + 4 + 8 + 4 * wm + 4 * wm
-    per_row = 2 * (4 * w + 1) + (4 * w + 1) + 8 * 3 + (4 * wm + 1)
-    return pairs * per_pair + float(out_cap) * per_row
+    sa = join_lib.Schema(qnodes=tuple(range(w)), qlabels=(0,) * w)
+    sb = join_lib.Schema(qnodes=(w - 1,) + tuple(range(w, 2 * w - 1)), qlabels=(0,) * w)
+
+    def table(cap):
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        return join_lib.JoinTable(
+            cols=meta((cap, w), torch.int32), valid=meta((cap,), torch.bool),
+            n_rows=meta((), torch.int32), overflow=meta((), torch.bool),
+        )
+
+    def peak(cap: int) -> float:
+        _, log = oplog.record(
+            lambda a, b: join_lib.sort_merge_join(
+                a, b, sa, sb, out_cap=cap, dup_cap=int(dup_cap)
+            )[0],
+            table(cap), table(cap),
+        )
+        return costmodel.peak_bytes(log)
+
+    # every buffer of the join is linear in ``out_cap`` at a fixed
+    # ``dup_cap``; torch's meta cumsum sizes an n × n scratch, which
+    # overflows at 2**30 probe pairs, so such caps are priced at half the
+    # rows, twice
+    cap, scale = int(out_cap), 1
+    while True:
+        try:
+            est = peak(cap) * scale
+            break
+        except RuntimeError:
+            if cap < 2:
+                raise
+            cap, scale = cap // 2, scale * 2
+    _COST_CACHE[key] = est
+    return est
 
 
 def plan_caps_bytes(caps: dict) -> float:
@@ -124,8 +160,13 @@ def plan_caps_bytes(caps: dict) -> float:
 
 def retry_ceiling_bytes(budgets: dict | None = None) -> float:
     """The cap-growth byte ceiling: ``budgets["retry"]["memory_ceiling_bytes"]``
-    of a dict shaped like the JAX package's ``analysis/budgets.json``, or
-    `MEMORY_CEILING_BYTES` when no dict (or no such entry) is given."""
+    of a dict shaped like ``analysis/budgets.json``; with no dict, the
+    port's own ``analysis/budgets.json``'s (as the JAX package reads its
+    own). A dict without the entry gives `MEMORY_CEILING_BYTES`."""
+    if budgets is None:
+        from repro_torch.analysis.staticcheck import costmodel
+
+        budgets = costmodel.load_budgets()
     retry = budgets.get("retry", {}) if isinstance(budgets, dict) else {}
     return float(retry.get("memory_ceiling_bytes", MEMORY_CEILING_BYTES))
 

@@ -56,10 +56,18 @@ def test_the_port_has_its_modules():
                 "launch/serve.py", "optim/adamw.py", "optim/__init__.py",
                 "checkpoint/checkpointer.py", "checkpoint/__init__.py",
                 "runtime/fault_tolerance.py", "extras/train.py", "train/__init__.py",
-                "models/moe.py", "models/mla.py"):
+                "models/moe.py", "models/mla.py", "analysis/__init__.py",
+                "analysis/roofline.py",
+                "analysis/staticcheck/__init__.py", "analysis/staticcheck/__main__.py",
+                "analysis/staticcheck/findings.py", "analysis/staticcheck/oplog.py",
+                "analysis/staticcheck/archlint.py", "analysis/staticcheck/cachekeys.py",
+                "analysis/staticcheck/contracts.py", "analysis/staticcheck/engines.py",
+                "analysis/staticcheck/costmodel.py",
+                "analysis/staticcheck/collective_safety.py"):
         assert f"src/repro_torch/{mod}" in names
     for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu",
                 "segment_mp.cu", "join_probe.cu", "probe.cuh", "flash_attention.cu",
                 "flash_attention_tc.cu", "flash_attention_tf32.cu", "hopper.cuh"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / src).exists()
+    assert (ROOT / "src" / "repro_torch" / "analysis" / "budgets.json").exists()
     assert (ROOT / "chip_smoke.py").exists()

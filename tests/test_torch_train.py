@@ -466,6 +466,31 @@ def test_supervisor_resume_is_bitwise_an_uninterrupted_run(tmp_path):
         assert torch.equal(x, y), n
 
 
+def test_supervisor_joins_the_inflight_save_before_a_preemption_leaves(tmp_path, monkeypatch):
+    """The step-2 save is still being written when the preemption at step 3
+    is raised (``np.save`` slowed down); `run` joins it first, so a fresh
+    `Checkpointer` over the same directory finds step 2."""
+    import time
+
+    from repro_torch.checkpoint import checkpointer as ckpt_mod
+
+    real_save = ckpt_mod.np.save
+
+    def slow_save(*a, **k):
+        time.sleep(0.01)
+        return real_save(*a, **k)
+
+    monkeypatch.setattr(ckpt_mod.np, "save", slow_save)
+    sup = TrainSupervisor(Checkpointer(tmp_path, keep=2), ckpt_every=2,
+                          fail_at={3: SimulatedPreemption})
+    with pytest.raises(SimulatedPreemption):
+        sup.run(state={"w": torch.zeros(40)}, n_steps=6,
+                step_fn=lambda st, b, s: ({"w": st["w"] + b}, {"loss": torch.tensor(0.0)}),
+                batch_fn=lambda s: float(s))
+    assert sup.checkpointer._thread is None
+    assert Checkpointer(tmp_path, keep=2).latest_step() == 2
+
+
 # ------------------------------------------------------- autograd Functions
 D64 = torch.float64
 
