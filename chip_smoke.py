@@ -25,7 +25,11 @@ result lines are printed only when every phase passed):
      stage's median ms per exploration round (a round launches
      ``stwig_expand`` once and ``bitset_build`` once for all its columns);
      one repeat is traced with ``torch.profiler`` (device time, busy share,
-     top kernels), a measurement only;
+     top kernels), a measurement only. Then the engine's direct entry
+     points, counted alone (the five kernels each > 0):
+     ``session.engine.match(q, adaptive=False)`` gives each query's rows,
+     and ``match_stream`` pages (at most the open stream's ``n_blocks``)
+     whose first 1,024 rows are the facade stream's;
   4. the same queries and stream with ``kernels="torch"`` (the plain
      PyTorch versions) on the card must give identical rows; the inputs of
      each op's largest call there are kept for phase 5, and every
@@ -109,7 +113,9 @@ result lines are printed only when every phase passed):
      every query of one STwig; three repeats a query (wall and
      explore/fetch/join/materialize times), one repeat traced with
      ``torch.profiler`` (a measurement only), peak memory; the same queries
-     and stream with ``kernels="torch"`` give identical rows and pages,
+     and stream with ``kernels="torch"`` give identical rows and pages
+     (the direct entry points as in phase 3, and ``bool_allreduce_any``
+     over the stacked shard dim bit-exact with numpy's ``any``),
      and on the last shard's ids (global ids from 15 · 236,632 up) each
      ``stwig_expand`` call and ``candidate_filter`` on each of its
      children are bit-exact against the plain versions;
@@ -153,7 +159,13 @@ result lines are printed only when every phase passed):
      ``segment_mp`` 5 per GIN forward and 32 per GatedGCN forward. TF32 is
      off. Logits and each first-layer aggregation are held to
      ``kernels="torch"`` within ``1e-4 · max|plain|``; the four kinds'
-     smoke configs give the same outputs on card and CPU;
+     smoke configs give the same outputs on card and CPU. Then the
+     ``molecule`` shape: ``molecule_batch(128, 30, 2.15)`` (32 bonds drawn a
+     molecule, 4,096 in all; every kept bond in both directions in 8,192
+     slots, ``graph_id = node // 30``), GIN-TU and GatedGCN forwards at their
+     published widths (d_in 32, graph task), counted alone (``segment_mp``
+     7 and 34: a layer's 1 or 2, and 2 for the pooling), logits held to
+     ``kernels="torch"`` within 1e-4 of each graph's scale;
  10. probe — the join probe's two kernels (``extras/join_probe/ops.py``
      ``lower_bound``, ``window``) on the inputs of the query path's largest
      ``hash_join_probe`` call, counted (each > 0), bit-exact against their
@@ -261,6 +273,17 @@ result lines are printed only when every phase passed):
      preempted at step 3 of 6 and restarted from its step-2 checkpoint
      (under ``build/``), bit-identical to an uninterrupted run. The
      full-width runs write no checkpoint.
+  examples — each ``examples/torch_*.py`` ``main()`` on the card at its
+     default size, counted alone: the three matcher examples launch the
+     matcher's five kernels (the served workload with no failed outcome),
+     the training example's attention route launches once a layer a step;
+  dryrun — ``dryrun.run_cell`` for every cell, in this process on the
+     host (meta tensors), after the card's other phases: a line a arch ×
+     shape cell (priced peak, whether it fits the card's memory, FLOPs,
+     model FLOPs, the roofline's terms), 0 failed, every skipped cell one
+     of its arch's ``skipped_shapes``; then each of `DRYRUN_CARD_CELLS` run
+     once on the card from its cell's shapes, its ``max_memory_allocated``
+     within `DRYRUN_BAND` of the priced peak where it is at least 256 MB;
 
 Before the last line it prints the fourteen kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -1358,6 +1381,8 @@ def phase_sharded(g, edge_keys, queries, local_full) -> None:
     embedding_check(g, edge_keys, queries[0], np.concatenate(stream_cuda) if stream_cuda
                     else np.zeros((0, queries[0].n_nodes), np.int64))
     log(f"[sharded] every row of {len(queries)} queries + stream is a valid embedding")
+    direct_entry_points(session, queries, rows_cuda, stream_cuda, "sharded")
+    log(f"[sharded] {stacked_any_check(eng)}")
 
     # every match at max_matches=0: no duplicate across shards, and the
     # local engine's set wherever the local result is complete. A query of
@@ -1744,7 +1769,9 @@ def phase_recsys(dev, smi: str) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda_k, plain = get_kernels("cuda"), get_kernels("torch")
-    cfg, shapes = xdeepfm.CONFIG, xdeepfm.SERVE_SHAPES
+    from repro_torch.extras.shapes import REC_SHAPES
+
+    cfg, shapes = xdeepfm.CONFIG, REC_SHAPES
     n_cin = len(cfg.cin_layers)
 
     # ---- the smoke config: the same logits on the card and on the CPU -----
@@ -2052,6 +2079,7 @@ def phase_gnn(dev) -> tuple[list[dict], object]:
         del calls, args, msg
     del full, mb, paths, outs
     torch.cuda.empty_cache()
+    gnn_molecule(dev)
     return rows, mb_host
 
 
@@ -3411,6 +3439,338 @@ def retry_pricing_line() -> str:
             + "; ".join(parts))
 
 
+# ---------------------------------------------------------------- [direct]
+def direct_entry_points(session, queries, rows, stream_rows, tag: str) -> None:
+    """The engine's direct entry points on the path's queries, with the
+    launch counts zeroed just before and read just after:
+    ``session.engine.match(q, adaptive=False)`` must give the rows of
+    ``compiled.run(adaptive=False)`` (``rows``, from `run_queries`), and
+    ``match_stream`` on the streamed query pages whose rows, up to 1,024,
+    are the facade stream's (``stream_rows``); the pages are at most the
+    open stream's ``n_blocks``; the matcher's five kernels are launched."""
+    from repro_torch.core.stream import open_stream
+    from repro_torch.kernels import cuda
+
+    eng = session.engine
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = [eng.match(q, adaptive=False, max_matches=1024).rows for q in queries]
+    # CompiledQuery.stream(page_size=256) joins blocks of max(256, 1024) rows
+    pages = list(eng.match_stream(queries[0], max_matches=1024, block_rows=1024))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = cuda.launch_counts()
+    for sym in MATCHER_KERNELS:
+        if counts[sym] <= 0:
+            fail(f"[{tag}] kernel {sym} was never launched by the engine's direct entry points")
+    for i, (a, b) in enumerate(zip(got, rows)):
+        if a.shape != b.shape or not (a == b).all():
+            fail(f"[{tag}] q{i}: engine.match gives other rows than compiled.run")
+    direct = (np.concatenate([p.rows for p in pages]) if pages
+              else np.zeros((0, queries[0].n_nodes), np.int64))
+    want = (np.concatenate(stream_rows) if stream_rows
+            else np.zeros((0, queries[0].n_nodes), np.int64))
+    if direct[:1024].shape != want.shape or not (direct[:1024] == want).all():
+        fail(f"[{tag}] match_stream's first {len(want)} rows are not the facade stream's")
+    n_blocks = open_stream(eng, queries[0], None, block_rows=1024, max_matches=1024).n_blocks
+    if not 0 < len(pages) <= n_blocks:
+        fail(f"[{tag}] match_stream yielded {len(pages)} pages, n_blocks is {n_blocks}")
+    log(f"[{tag}] direct entry points: engine.match(q, adaptive=False) x {len(queries)} "
+        f"= compiled.run's rows, match_stream's {len(pages)} pages (n_blocks {n_blocks}, "
+        f"{len(direct)} rows) begin with the facade stream's {len(want)}; {ms:.3f} ms; "
+        f"launches { {k: counts[k] for k in MATCHER_KERNELS} }")
+
+
+def stacked_any_check(eng) -> str:
+    """`collectives.bool_allreduce_any` over the sharded engine's stacked
+    shard dim, bit for bit against its plain version (numpy: the shards'
+    largest value as int32 is positive): each shard's label == 0 flags, its
+    int32 labels, and its labels less one (-1 where a label is 0)."""
+    from repro_torch.core import collectives
+
+    labels = torch.stack([gr.labels for gr in eng.graphs])  # (S, cap) on the card
+    out = []
+    for x in (labels == 0, labels, labels - 1):
+        got = collectives.bool_allreduce_any(x)
+        want = x.cpu().numpy().astype(np.int32).max(axis=0) > 0
+        if got.dtype != torch.bool or not np.array_equal(got.cpu().numpy(), want):
+            fail(f"bool_allreduce_any over {tuple(x.shape)} {x.dtype} differs from numpy")
+        out.append(f"{tuple(x.shape)} {str(x.dtype).removeprefix('torch.')}")
+    return f"bool_allreduce_any bit-exact with numpy's max > 0 over the shard dim on {out}"
+
+
+# ---------------------------------------------------------------- molecule
+# the GNN molecule shape (GNN_SHAPES["molecule"]: 128 graphs × 30 nodes,
+# 8,192 slots of directed edges, d 32): molecule_batch at avg_degree 2.15
+# draws int(30 · 2.15 / 2) = 32 bonds a molecule, 4,096 in all, 8,192 once
+# stored both ways
+MOLECULE = dict(avg_degree=2.15, n_labels=8, seed=0)
+
+
+def gnn_molecule(dev) -> None:
+    """GIN-TU and GatedGCN forwards at their published widths on
+    ``molecule_batch`` at the molecule shape, ``kernels="cuda"`` against
+    ``kernels="torch"`` (1e-4 of each graph's largest |logit|, floored at
+    the median graph's), with ``segment_mp``'s launches counted for each
+    forward alone (a launch a GIN layer, two a GatedGCN layer, two for the
+    pooling)."""
+    import dataclasses
+
+    from repro_torch.configs import gatedgcn, gin_tu
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.pipeline import gnn_graph_batch
+    from repro_torch.graphstore import generators
+    from repro_torch.kernels import cuda
+    from repro_torch.models.gnn import GNN, batch_to
+    from repro_torch.train.step import make_serve_fns
+
+    t_phase = time.perf_counter()
+    s = GNN_SHAPES["molecule"]
+    n_graphs = s["n_graphs"]
+    per = s["n"] // n_graphs
+    e_per = max(1, int(per * MOLECULE["avg_degree"] / 2))
+    if 2 * n_graphs * e_per != s["e"]:
+        fail(f"molecule_batch draws {n_graphs} x {e_per} bonds, not the shape's "
+             f"{s['e']} directed edges")
+    g = generators.molecule_batch(n_graphs, per, MOLECULE["avg_degree"], MOLECULE["n_labels"],
+                                  seed=MOLECULE["seed"])
+    src = np.repeat(np.arange(g.n_nodes), np.diff(g.indptr))
+    undirected = int((src < g.indices).sum())
+    log(f"[gnn] molecule: molecule_batch({n_graphs}, {per}, {MOLECULE['avg_degree']}) draws "
+        f"{e_per} bonds a molecule ({n_graphs * e_per}); Graph.from_edges keeps {undirected} "
+        f"(self-loops and repeats dropped) and stores each both ways ({g.n_edges} directed); "
+        f"the batch carries every directed edge in {s['e']} slots, graph_id = node // {per}")
+    for mod, per_layer in ((gin_tu, 1), (gatedgcn, 2)):
+        cfg = dataclasses.replace(mod.CONFIG, d_in=s["d"], task="graph")
+        batch = batch_to(gnn_graph_batch(cfg, g, nodes_per_graph=per, n_edges=s["e"],
+                                         n_classes=cfg.n_classes, seed=0), dev)
+        model = GNN(cfg, device=dev)
+        if model.kernels.name != "cuda":
+            fail(f"GNN on the card chose kernels {model.kernels.name!r}")
+        fn = make_serve_fns(cfg, model)["infer"]
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        got = fn(batch)
+        torch.cuda.synchronize()
+        n = cuda.launch_counts()["segment_mp"]
+        if n != per_layer * cfg.n_layers + 2:
+            fail(f"{cfg.name} molecule: segment_mp launched {n} times, not "
+                 f"{per_layer * cfg.n_layers + 2}")
+        if got.shape != (n_graphs, cfg.n_classes):
+            fail(f"{cfg.name} molecule: logits of shape {tuple(got.shape)}")
+        ms = time_ms(lambda: fn(batch))
+        model.set_kernels("torch")
+        want = fn(batch)
+        err = scaled_err(got, want, row_scale(want), f"{cfg.name} molecule logits")
+        plain_ms = time_ms(lambda: fn(batch))
+        log(f"[gnn] {cfg.name} molecule forward ({cfg.n_layers} layers, d {cfg.d_hidden}): "
+            f"within 1e-4 of kernels='torch' (largest |kernel - plain| / scale, largest "
+            f"|kernel - plain|: {err[0]:.3e}, {err[1]:.3e}); segment_mp launches {n}; "
+            f"{ms:.4f} ms (kernels='torch': {plain_ms:.4f} ms)")
+    log(f"[gnn] molecule {time.perf_counter() - t_phase:.2f} s")
+
+
+# ---------------------------------------------------------------- [examples]
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples() -> None:
+    """Each ``examples/torch_*.py`` ``main()`` on the card at its default
+    size, its launch counts zeroed just before and read just after: the
+    matcher examples must launch the matcher's five kernels, the training
+    example the attention route its head dims take once a layer a step."""
+    from repro_torch.kernels import cuda
+
+    t_phase = time.perf_counter()
+    for name in ("torch_quickstart", "torch_distributed_query", "torch_serve_queries"):
+        mod = load_example(name)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = mod.main([])
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        counts = cuda.launch_counts()
+        for sym in MATCHER_KERNELS:
+            if counts[sym] <= 0:
+                fail(f"[examples] {name}: kernel {sym} was never launched")
+        if name == "torch_serve_queries":
+            if out["summary"]["failed"] or out["stats"].global_degradations:
+                fail(f"[examples] {name}: {out['summary']['failed']} failed, "
+                     f"{out['stats'].global_degradations} global degradations")
+            what = (f"{len(out['outcomes'])} queries: {out['summary']['served']} served, "
+                    f"{out['summary']['partial']} partial")
+        else:
+            res = out["result"]
+            if res.n_matches == 0 or res.stats.backend not in ("local", "sharded"):
+                fail(f"[examples] {name}: {res.n_matches} matches on {res.stats.backend}")
+            what = f"{res.n_matches} matches on {res.stats.backend}, complete {res.complete}"
+        log(f"[examples] {name}: {what}; {s:.2f} s; launches "
+            f"{ {k: counts[k] for k in MATCHER_KERNELS} }")
+    mod = load_example("torch_train_lm")
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = mod.main(["--ckpt", str(ROOT / "build" / "torch_example_ckpt")])
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    hist = out["history"]
+    launches = cuda.launch_counts()[out["symbol"]]
+    if launches != out["launches"]:
+        fail(f"[examples] torch_train_lm: the counts read {launches} launches of "
+             f"{out['symbol']}, the example {out['launches']}")
+    if launches != 4 * len(hist):
+        fail(f"[examples] torch_train_lm: route {out['route']!r} launched {launches} "
+             f"times in {len(hist)} steps of 4 layers")
+    log(f"[examples] torch_train_lm: attention route {out['route']!r}, {launches} "
+        f"launches in {len(hist)} steps (one a layer a step: the backward is the plain "
+        f"version's); loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; {s:.2f} s")
+    log(f"[examples] phase {time.perf_counter() - t_phase:.2f} s")
+
+
+# ---------------------------------------------------------------- [dryrun]
+# the cells the card runs at their assigned shapes (their priced peaks fit),
+# each step run once on the card beside its price; a cell whose measured
+# peak is >= DRYRUN_HELD_BYTES must fall in DRYRUN_BAND (measured / priced),
+# the band written down before the first run (PERF.md, the dry run's findings)
+DRYRUN_CARD_CELLS = (("xdeepfm", "serve_p99"), ("xdeepfm", "serve_bulk"),
+                     ("xdeepfm", "retrieval_cand"), ("xdeepfm", "train_batch"),
+                     ("gatedgcn", "molecule"), ("gin-tu", "molecule"),
+                     ("gatedgcn", "minibatch_lg"))
+DRYRUN_BAND = (0.8, 1.5)
+DRYRUN_HELD_BYTES = 256e6
+
+
+def card_args(cell, cfg, opt_cfg, dev):
+    """The cell's abstract arguments made real on the card: the model drawn
+    from seed 0 (CUDA kernels), AdamW state from ``optim.init``, and inputs
+    of the abstract shapes and dtypes with their values in range."""
+    from repro_torch import optim
+
+    meta = cell.abstract_args(cfg, opt_cfg)
+    model = type(meta[0])(meta[0].cfg, device=dev)
+    mcfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fill(t, hi=None):
+        if t.dtype == torch.bool:
+            return torch.ones(t.shape, dtype=torch.bool, device=dev)
+        if t.is_floating_point():
+            return torch.randn(t.shape, generator=gen, dtype=t.dtype, device=dev)
+        return torch.randint(0, hi, t.shape, generator=gen, dtype=t.dtype, device=dev)
+
+    if cell.kind != "train":
+        vocab = mcfg.vocab_per_field
+        return (model,) + tuple(fill(t, vocab) for t in meta[1:])
+    batch = meta[2]
+    if "graph" in batch:
+        g = batch["graph"]
+        N = g.node_feat.shape[0]
+        hi = {"edge_src": N, "edge_dst": N, "graph_id": g.n_graphs, "labels": mcfg.n_classes}
+        fields = {k: fill(v, hi.get(k)) for k, v in g._asdict().items()
+                  if isinstance(v, torch.Tensor)}
+        if g.graph_id is not None:
+            fields["graph_id"] = (torch.arange(N, device=dev) * g.n_graphs // N).to(torch.int32)
+        real = {"graph": g._replace(**fields)}
+    else:
+        real = {"ids": fill(batch["ids"], mcfg.vocab_per_field),
+                "bag_mask": fill(batch["bag_mask"]), "labels": fill(batch["labels"], 2)}
+    return (model, optim.init(opt_cfg, dict(model.named_parameters())), real,
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def phase_dryrun(smi: str) -> None:
+    """Every arch × shape cell priced on meta tensors on the host
+    (``dryrun.run_cell``, in this process): a line a cell, the summary (0
+    failed, every skipped cell one of its arch's ``skipped_shapes``), the
+    seconds; then each `DRYRUN_CARD_CELLS` step run once on the card from
+    the cell's shapes, its measured peak (``max_memory_allocated`` over the
+    memory allocated before its arguments were made) beside the priced
+    one, and the priced FLOPs beside the model FLOPs."""
+    from repro_torch.configs import get
+    from repro_torch.extras import dryrun, shapes
+    from repro_torch.kernels import cuda
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    t_start = time.perf_counter()
+    recs = {}
+    for arch, shape in dryrun.all_cell_ids():
+        recs[(arch, shape)] = r = dryrun.run_cell(arch, shape, device_bytes=total, save=False)
+        if r["status"] == "skipped":
+            if shape not in dict(get(arch).skipped_shapes):
+                fail(f"[dryrun] {arch} x {shape} skipped, not one of its skipped_shapes")
+            log(f"[dryrun] {arch} x {shape}: skipped ({r['reason']})")
+            continue
+        if r["status"] != "ok":
+            fail(f"[dryrun] {arch} x {shape}: {r.get('error')}\n{r.get('traceback', '')}")
+        roof = r["roofline"]
+        log(f"[dryrun] {arch} x {shape} ({r['kind']}): peak {r['memory']['peak_bytes'] / 1e9:.3f} "
+            f"GB (arguments {r['memory']['argument_bytes'] / 1e9:.3f} GB; fit of depths "
+            f"{r['extrapolated']['peak_bytes'] / 1e9:.3f}), fits {r['fits']}; FLOPs "
+            f"{roof['flops_per_chip']:.6g}, model FLOPs {roof['model_flops']:.6g}; bytes "
+            f"{roof['hbm_bytes_per_chip']:.6g}; t_compute {roof['t_compute_s'] * 1e3:.4f} ms, "
+            f"t_memory {roof['t_memory_s'] * 1e3:.4f} ms -> {roof['bottleneck']}; priced in "
+            f"{r['record_s']:.2f} + {r['measure_s']:.2f} s")
+    n = {k: sum(r["status"] == k for r in recs.values()) for k in ("ok", "skipped", "error")}
+    log(f"[dryrun] {n['ok']} ok, {n['skipped']} skipped, {n['error']} failed; "
+        f"{sum(r['fits'] for r in recs.values() if r['status'] == 'ok')} cells fit "
+        f"{total / 1e9:.3f} GB ({smi}); priced in {time.perf_counter() - t_start:.2f} s")
+
+    # ---- the cells the card can hold, run once each on the card ------------
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, shape in DRYRUN_CARD_CELLS:
+        r = recs[(arch, shape)]
+        if not r["fits"]:
+            fail(f"[dryrun] {arch} x {shape} is priced at {r['memory']['peak_bytes'] / 1e9:.3f} "
+                 f"GB, over the card's {total / 1e9:.3f}")
+        entry = get(arch)
+        cell = shapes.build_cell(entry, shape)
+        cfg, opt_cfg = entry.config, dryrun._opt_cfg_for(entry.config)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = card_args(cell, cfg, opt_cfg, dev=torch.device("cuda"))
+        if args[0].kernels.name != "cuda":
+            fail(f"[dryrun] {arch} on the card chose kernels {args[0].kernels.name!r}")
+        fn = cell.fn(cfg, opt_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        t1 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = {k: v for k, v in cuda.launch_counts().items() if v}
+        value = res[1]["loss"] if cell.kind == "train" else res
+        if not torch.isfinite(value).all():
+            fail(f"[dryrun] {arch} x {shape}: non-finite output on the card")
+        priced = r["memory"]["peak_bytes"]
+        ratio = peak / priced
+        held = peak >= DRYRUN_HELD_BYTES
+        log(f"[dryrun] card {arch} x {shape}: max_memory_allocated {peak / 1e9:.4f} GB, priced "
+            f"{priced / 1e9:.4f} GB (measured / priced {ratio:.4f}"
+            f"{'' if held else ', under 256 MB: printed only'}); priced FLOPs "
+            f"{r['roofline']['flops_per_chip']:.6g}, model FLOPs "
+            f"{r['roofline']['model_flops']:.6g}; one call {ms:.3f} ms (first call); "
+            f"launches {counts}")
+        if held and not DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1]:
+            fail(f"[dryrun] {arch} x {shape}: measured / priced peak {ratio:.4f} outside "
+                 f"{DRYRUN_BAND}")
+        del args, res, value
+    torch.cuda.empty_cache()
+    log(f"[dryrun] card runs {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> None:
     name, smi = phase_device()
     from repro_torch.api import GraphSession
@@ -3459,6 +3819,7 @@ def main() -> None:
     embedding_check(g, edge_keys, queries[0], np.concatenate(stream_cuda) if stream_cuda
                     else np.zeros((0, queries[0].n_nodes), np.int64))
     log(f"[main] every row of {len(queries)} queries + stream is a valid embedding")
+    direct_entry_points(session, queries, rows_cuda, stream_cuda, "main")
     for line in repeat_times(session, queries):
         log(f"[main] {line}")
     # where a repeat's time goes: the query with the most edges, traced once
@@ -3546,6 +3907,14 @@ def main() -> None:
     # ---- phase 13: training -- gemma-2b at full width, xDeepFM, GatedGCN ---
     phase_train(dev, mb_host, smi)
     del mb_host
+    torch.cuda.empty_cache()
+
+    # ---- [examples]: each examples/torch_*.py at its default size ----------
+    phase_examples()
+    torch.cuda.empty_cache()
+
+    # ---- [dryrun]: every cell priced on meta; the cells the card holds run -
+    phase_dryrun(smi)
     torch.cuda.empty_cache()
 
     # ---- [analysis]: the static analyzer's five passes on the card, last, so

@@ -2,8 +2,8 @@
 
 The JAX package walks each ``shard_map`` body for its collectives. Here the
 S shards are stacked on one device and each collective of
-`repro_torch.core.collectives` (`or_allreduce`, `pmax`, `gather_load_set`,
-`gather_load_set_ring`, `fetch_load_set`) is an op over the stacked dim 0,
+`repro_torch.core.collectives` (`or_allreduce`, `pmax`, `bool_allreduce_any`,
+`gather_load_set`, `gather_load_set_ring`, `fetch_load_set`) is an op over the stacked dim 0,
 so the pass reads the calls themselves: `Recording` installs the module's
 ``recorder`` hook and an op recorder (`oplog`) around a run, and `check`
 holds every recorded call to the JAX package's four invariants, in their
@@ -66,7 +66,7 @@ def _per_shard_bytes(name: str, result, info: dict, S: int) -> float:
     """Bytes each shard receives: the replicated result of a reduction;
     the gathered rows and the shard's validity row of an all-gather; the
     ring's fetched blocks (its own block excluded)."""
-    if name in ("or_allreduce", "pmax"):
+    if name in ("or_allreduce", "pmax", "bool_allreduce_any"):
         return float(result.nbytes)
     if name == "gather_load_set":
         cols, mask = result

@@ -12,6 +12,11 @@ once under the op recorder (`oplog`) and its log priced:
     reductions one per input element, sorts n·log₂n, an indexed read three
     an index and a binary search three a step; a ``kernels.<op>`` pseudo-op
     of a hand-written kernel carries its plain version's count;
+  * ``hbm_bytes``         — bytes the ops read and write (`log_bytes`):
+    every tensor an op takes or gives, once, at its own size; a view moves
+    nothing, and a ``kernels.<op>`` pseudo-op counts its inputs and outputs
+    only (the ops inside it are the kernel's, which keeps its temporaries
+    on chip). Ops are not fused, so it bounds an unfused step's traffic;
   * ``collective_bytes``  — bytes the sharded engine's collectives move, a
     shard: the per-shard result bytes × the ring multiplier of the JAX
     package's ``roofline.parse_collectives`` (all-reduce 2(n−1)/n,
@@ -27,6 +32,8 @@ import dataclasses
 import json
 import math
 import pathlib
+
+import torch
 
 from repro_torch.analysis.staticcheck.findings import Finding, rule
 
@@ -64,11 +71,22 @@ _SORTS = frozenset({"sort", "topk", "msort"})
 # spell out in their jaxprs and its cost model prices)
 _GATHERS = frozenset({"index", "index_select", "gather", "take", "take_along_dim"})
 
+# ops that move no bytes: views of an input, and allocations
+_NO_TRAFFIC = frozenset({
+    "view", "_unsafe_view", "reshape", "expand", "expand_as", "t", "transpose",
+    "permute", "select", "slice", "unsqueeze", "squeeze", "as_strided", "alias",
+    "detach", "split", "split_with_sizes", "unbind", "narrow", "diagonal", "unfold",
+    "view_as", "view_as_real", "view_as_complex", "lift_fresh", "chunk", "movedim",
+    "_reshape_alias", "numpy_T", "mT", "flatten", "unflatten", "empty", "empty_like",
+    "empty_strided", "new_empty", "new_empty_strided",
+})
+
 # the collectives of `repro_torch.core.collectives` → the JAX collective
 # kind each one stands for
 COLLECTIVE_KIND = {
     "or_allreduce": "all-reduce",
     "pmax": "all-reduce",
+    "bool_allreduce_any": "all-reduce",
     "gather_load_set": "all-gather",
     "gather_load_set_ring": "collective-permute",
 }
@@ -119,6 +137,21 @@ def op_flops(op) -> float:
 
 def log_flops(log) -> float:
     return float(sum(op_flops(o) for o in log.ops))
+
+
+def _tensor_bytes(t) -> float:
+    return float(t.numel * getattr(torch, t.dtype).itemsize)
+
+
+def op_bytes(op) -> float:
+    """Bytes one logged op reads and writes (see the module docstring)."""
+    if op.within or base_name(op.name) in _NO_TRAFFIC:
+        return 0.0
+    return float(sum(_tensor_bytes(t) for t in op.inputs + op.outputs))
+
+
+def log_bytes(log) -> float:
+    return float(sum(op_bytes(o) for o in log.ops))
 
 
 def plain_flops(op: str, args, kwargs) -> float | None:

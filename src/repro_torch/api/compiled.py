@@ -14,11 +14,11 @@ from typing import TYPE_CHECKING, Iterator
 
 import numpy as np
 
-from repro_torch.core.plan import QueryPlan, caps_from_plan
+from repro_torch.core.plan import QueryPlan
 from repro_torch.core.query import QueryGraph
 from repro_torch.core.result import MatchPage, MatchResult
 from repro_torch.core.stream import stream_blocks
-from repro_torch.runtime.resilience import QueryGuard, RetryPolicy, adaptive_run
+from repro_torch.runtime.resilience import QueryGuard, RetryPolicy
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.api.session import GraphSession
@@ -71,8 +71,6 @@ class CompiledQuery:
         plan = self.plan
         if max_matches is not None and max_matches != plan.max_matches:
             plan = dataclasses.replace(plan, max_matches=max_matches)
-        engine = self.session.engine
-        policy = retry_policy or RetryPolicy(max_retries=max_retries)
         if guard is None and (
             deadline_s is not None or memory_budget_bytes is not None
         ):
@@ -80,29 +78,15 @@ class CompiledQuery:
                 deadline_s=deadline_s,
                 memory_budget_bytes=memory_budget_bytes,
             )
-
-        def first() -> MatchResult:
-            return engine._match_once(
-                self.query, plan=plan, retry_policy=policy, **engine_kw
-            )
-
-        def escalate(caps: dict) -> MatchResult:
-            esc = self.session.replan(
-                self.query, **dict(caps, max_matches=plan.max_matches)
-            )
-            return engine._match_once(
-                self.query, plan=esc, retry_policy=policy, **engine_kw
-            )
-
-        return adaptive_run(
-            first,
-            escalate,
-            caps_from_plan(plan, dict(self.caps)),
-            n_qnodes=self.query.n_nodes,
-            backend=self.session.backend,
-            policy=policy,
-            guard=guard,
+        return self.session.engine._adaptive_match(
+            self.query,
+            plan,
             adaptive=adaptive,
+            max_retries=max_retries,
+            guard=guard,
+            retry_policy=retry_policy,
+            engine_kw=engine_kw,
+            kw=dict(self.caps, max_matches=plan.max_matches),
         )
 
     def stream(

@@ -136,8 +136,9 @@ class GNNConfig:
     dtype: str = "float32"
 
 
-# The GNN input shapes of ``src/repro/extras/shapes.py`` (``GNN_SHAPES``):
-# nodes, directed edges, input feature width, task.
+# The GNN input shapes (``GNN_SHAPES`` of ``src/repro/extras/shapes.py``):
+# nodes, directed edges, input feature width, task. The port's one copy:
+# `repro_torch.extras.shapes` reads it.
 GNN_SHAPES = {
     "full_graph_sm": dict(n=2708, e=10556, d=1433, task="node"),
     "minibatch_lg": dict(n=170624, e=168960, d=602, task="node"),

@@ -1,7 +1,6 @@
 """xdeepfm [recsys]: 39 sparse fields, embed_dim=10, CIN 200-200-200,
 MLP 400-400 [arXiv:1803.05170] — the JAX package's ``configs/xdeepfm.py``.
-
-Its serving shapes (``src/repro/extras/shapes.py``): ``SERVE_SHAPES``."""
+Its shapes are `repro_torch.extras.shapes.REC_SHAPES`."""
 from repro_torch.configs.base import ArchEntry, RecSysConfig, register
 
 CONFIG = RecSysConfig(
@@ -13,13 +12,6 @@ CONFIG = RecSysConfig(
     mlp_layers=(400, 400),
     bag_size=4,
 )
-
-SERVE_SHAPES = {
-    "serve_p99": dict(batch=512),                              # "score"
-    "serve_bulk": dict(batch=262144),                          # "score"
-    "retrieval_cand": dict(batch=1, n_candidates=1_000_000),   # "retrieve"
-}
-
 
 def smoke() -> RecSysConfig:
     return RecSysConfig(

@@ -19,7 +19,9 @@ over that dimension:
     along dim 0, sources ``[self, −1, +1, −2, +2, …]`` hops away, as the
     reference's forward and backward ``ppermute`` rings deliver them;
   * `fetch_load_set` — the one dispatch point between the two;
-  * `pmax` — a max over dim 0.
+  * `pmax` — a max over dim 0;
+  * `bool_allreduce_any` — the reference's ``pmax`` of a flag as int32,
+    ``> 0``: True where any shard's is.
 
 Every collective reports its call to `recorder` when one is installed: the
 staticcheck pass `repro_torch.analysis.staticcheck.collective_safety`
@@ -58,6 +60,14 @@ def pmax(x: torch.Tensor) -> torch.Tensor:
     """``x (S, …)`` → the max over the shards (bool: any)."""
     out = x.any(dim=0) if x.dtype == torch.bool else x.amax(dim=0)
     _note("pmax", {"x": x}, out)
+    return out
+
+
+def bool_allreduce_any(x: torch.Tensor) -> torch.Tensor:
+    """``x (S, …)`` → True where any shard's ``x``, cast to int32, is
+    positive: the reference's ``lax.pmax(x.astype(int32)) > 0``."""
+    out = x.to(torch.int32).amax(dim=0) > 0
+    _note("bool_allreduce_any", {"x": x}, out)
     return out
 
 

@@ -59,7 +59,7 @@ from repro_torch.core.result import MatchResult, MatchStats
 from repro_torch.graphstore.cluster_graph import ClusterGraphIndex
 from repro_torch.graphstore.partition import PartitionedGraph
 from repro_torch.runtime.chaos import ShardFaultError
-from repro_torch.runtime.resilience import DegradeReason, RetryPolicy, stage
+from repro_torch.runtime.resilience import DegradeReason, QueryGuard, RetryPolicy, stage
 
 __all__ = ["DistributedMatcher"]
 
@@ -84,6 +84,8 @@ def _table(cols: torch.Tensor, valid: torch.Tensor) -> join_lib.JoinTable:
 
 class DistributedMatcher(CachedSteps):
     """The multi-machine engine, its ``pg.n_shards`` shards on one device."""
+
+    backend = "sharded"
 
     def __init__(
         self,
@@ -137,6 +139,27 @@ class DistributedMatcher(CachedSteps):
             radii.append(r)
         # beneficial only if strictly smaller than a full gather
         return tuple(radii) if max(radii) < (S - 1) // 2 or S <= 4 else None
+
+    def match(
+        self,
+        query: QueryGraph,
+        plan: QueryPlan | None = None,
+        *,
+        adaptive: bool = True,
+        max_retries: int = 6,
+        use_ring: bool = False,
+        guard: QueryGuard | None = None,
+        retry_policy: RetryPolicy | None = None,
+        **kw,
+    ) -> MatchResult:
+        """Adaptive matching for direct (deprecated) engine use, with the
+        local engine's escalation semantics (`SubgraphMatcher.match`);
+        ``retry_policy`` also paces the fetch-recovery retries when a chaos
+        injector is attached, and ``use_ring`` takes the ring fetch where
+        the load sets allow it."""
+        return self._adaptive_match(
+            query, plan, adaptive=adaptive, max_retries=max_retries, guard=guard,
+            retry_policy=retry_policy, engine_kw={"use_ring": use_ring}, kw=kw)
 
     # ------------------------------------------------------ execution phases
     def _explore(self, plan: QueryPlan, stats: MatchStats):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -36,11 +37,12 @@ from repro_torch.core.match import (
     apply_binding_update,
     match_stwig_shard,
 )
-from repro_torch.core.plan import QueryPlan, STwigSpec, make_plan
+from repro_torch.core.plan import QueryPlan, STwigSpec, caps_from_plan, make_plan
 from repro_torch.core.query import QueryGraph
-from repro_torch.core.result import MatchResult, MatchStats
+from repro_torch.core.result import MatchPage, MatchResult, MatchStats
+from repro_torch.core.stream import stream_blocks
 from repro_torch.graphstore.partition import PartitionedGraph
-from repro_torch.runtime.resilience import stage
+from repro_torch.runtime.resilience import QueryGuard, RetryPolicy, adaptive_run, stage
 
 __all__ = ["CachedSteps", "SubgraphMatcher"]
 
@@ -75,16 +77,55 @@ class _LocalStreamState:
 
 
 class CachedSteps:
-    """What both engines share: planning, and the MatchSTwig and join steps
-    keyed by static spec and kernel backend in the session's cache. A
-    subclass sets ``pg``, ``cache`` and ``kernels``."""
+    """What both engines share: planning, the direct entry points, and the
+    MatchSTwig and join steps keyed by static spec and kernel backend in
+    the session's cache. A subclass sets ``pg``, ``cache``, ``kernels`` and
+    ``backend``."""
 
     pg: PartitionedGraph
     cache: ExecutableCache
     kernels: Kernels
+    backend: str
 
     def plan(self, query: QueryGraph, **kw) -> QueryPlan:
         return make_plan(query, self.pg.freq, **kw)
+
+    def _adaptive_match(
+        self, query: QueryGraph, plan: QueryPlan | None, *, adaptive: bool,
+        max_retries: int, guard: QueryGuard | None,
+        retry_policy: RetryPolicy | None, engine_kw: dict, kw: dict,
+    ) -> MatchResult:
+        """The direct ``match`` of either engine and the facade's
+        ``CompiledQuery.run``: `adaptive_run` over ``_match_once``,
+        escalating from ``plan``'s caps (or ``kw``'s plan of ``query``) with
+        re-made plans."""
+        policy = retry_policy or RetryPolicy(max_retries=max_retries)
+        plan0 = plan if plan is not None else self.plan(query, **kw)
+        return adaptive_run(
+            lambda: self._match_once(query, plan0, retry_policy=policy, **engine_kw),
+            lambda caps: self._match_once(
+                query, None, retry_policy=policy, **engine_kw, **caps),
+            caps_from_plan(plan0, kw),
+            n_qnodes=query.n_nodes,
+            backend=self.backend,
+            policy=policy,
+            guard=guard,
+            adaptive=adaptive,
+        )
+
+    def match_stream(
+        self,
+        query: QueryGraph,
+        plan: QueryPlan | None = None,
+        *,
+        block_rows: int = 1024,
+        **kw,
+    ) -> Iterator[MatchPage]:
+        """Pipelined first-K execution (paper §6.1): the shared streaming
+        driver (`repro_torch.core.stream.stream_blocks`), kept for direct
+        (deprecated) engine use. ``kw`` holds the driver's ``guard``, the
+        engine's options (``use_ring``) and plan caps."""
+        yield from stream_blocks(self, query, plan, block_rows=block_rows, **kw)
 
     def _match_fn(self, spec: STwigSpec):
         kern = self.kernels
@@ -159,6 +200,8 @@ class CachedSteps:
 class SubgraphMatcher(CachedSteps):
     """Single-device matcher over a 1-shard partitioned graph."""
 
+    backend = "local"
+
     def __init__(
         self,
         pg: PartitionedGraph,
@@ -189,6 +232,30 @@ class SubgraphMatcher(CachedSteps):
         # callers assert early-stopped streams skip work
         self.join_block_calls = 0
         self.g = ShardGraph.from_partition(pg, shard, self.device)
+
+    def match(
+        self,
+        query: QueryGraph,
+        plan: QueryPlan | None = None,
+        *,
+        adaptive: bool = True,
+        max_retries: int = 6,
+        guard: QueryGuard | None = None,
+        retry_policy: RetryPolicy | None = None,
+        **kw,
+    ) -> MatchResult:
+        """Match with adaptive capacity growth, for direct (deprecated)
+        engine use: if a block capacity overflows (paper §4.2), the plan is
+        re-made with doubled capacities and the query re-runs, starting
+        from ``plan``'s caps when one is given. ``adaptive=False`` returns
+        the first, possibly partial, result (``complete=False``): the
+        paper's first-K semantics. ``guard`` bounds the query by deadline
+        or memory budget at the retry boundaries; ``retry_policy`` adds
+        backoff and the byte ceiling on cap growth
+        (`repro_torch.runtime.resilience.adaptive_run`)."""
+        return self._adaptive_match(
+            query, plan, adaptive=adaptive, max_retries=max_retries, guard=guard,
+            retry_policy=retry_policy, engine_kw={}, kw=kw)
 
     # -------------------------------------------------- streaming interface
     def _stream_setup(

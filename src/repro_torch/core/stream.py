@@ -53,6 +53,11 @@ class OpenStream:
     def plan(self) -> QueryPlan:
         return self.state.plan
 
+    @property
+    def n_blocks(self) -> int:
+        """Upper bound on join quanta left in a full consumption."""
+        return -(-self.state.cap // self.block_rows)
+
     def blocks(self) -> Iterator[MatchPage]:
         """Yield one `MatchPage` per non-empty block of the blocked table.
 

@@ -97,3 +97,41 @@ def recsys_batch(
     score = (ids[..., 0] % 97 / 97.0) @ w
     labels = (score > np.median(score)).astype(np.int32)
     return {"ids": ids, "bag_mask": mask, "labels": labels}
+
+
+def gnn_graph_batch(
+    cfg: GNNConfig,
+    g: Graph,
+    *,
+    nodes_per_graph: int,
+    n_edges: int,
+    n_classes: int,
+    seed: int,
+) -> GraphBatch:
+    """Graph-level batch (the ``molecule`` regime): ``gnn_full_batch`` of the
+    block-diagonal union of small graphs that ``generators.molecule_batch``
+    makes, every stored (directed) edge padded to ``n_edges`` slots with
+    masked edges at node 0, ``graph_id = node // nodes_per_graph`` and one
+    label a graph. Raises if the edges do not fit."""
+    if g.n_edges > n_edges:
+        raise ValueError(f"{g.n_edges} directed edges do not fit {n_edges} slots")
+    b = gnn_full_batch(cfg, g, n_classes=n_classes, seed=seed)
+    pad = n_edges - g.n_edges
+
+    def padded(a):
+        return np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+
+    n_graphs = g.n_nodes // nodes_per_graph
+    rng = np.random.default_rng([seed, 1])
+    return b._replace(
+        edge_src=padded(b.edge_src),
+        edge_dst=padded(b.edge_dst),
+        edge_mask=padded(b.edge_mask),
+        edge_feat=None if b.edge_feat is None else padded(b.edge_feat),
+        graph_id=(np.arange(g.n_nodes) // nodes_per_graph).astype(np.int32),
+        n_graphs=n_graphs,
+        labels=rng.normal(size=(n_graphs,)).astype(np.float32)
+        if cfg.task == "regression"
+        else rng.integers(0, n_classes, n_graphs).astype(np.int32),
+        label_mask=None,
+    )

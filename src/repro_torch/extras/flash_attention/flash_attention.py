@@ -148,22 +148,24 @@ def launch(
 
 class FlashAttention(torch.autograd.Function):
     """`flash_attention` with gradients for q, k and v:
-    ``FlashAttention.apply(q, k, v, scale, window, softcap)``."""
+    ``FlashAttention.apply(q, k, v, scale, window, softcap)``. ``attend``
+    (default `flash_attention`) runs the forward: the dry run
+    (`repro_torch.extras.dryrun`) gives one that prices the kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale=None, window=None, softcap=None):
+    def forward(ctx, q, k, v, scale=None, window=None, softcap=None, attend=flash_attention):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(scale=scale, window=window, softcap=softcap)
-        return flash_attention(q, k, v, **ctx.kw)
+        return attend(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_out):
         want = ctx.needs_input_grad[:3]
         if not any(want):
-            return None, None, None, None, None, None
+            return None, None, None, None, None, None, None
         inputs = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, want)]
         with torch.enable_grad():
             out = ref.mha_reference(*inputs, **ctx.kw)
             grads = torch.autograd.grad(out, [t for t in inputs if t.requires_grad], grad_out)
         it = iter(grads)
-        return (*(next(it) if w else None for w in want), None, None, None)
+        return (*(next(it) if w else None for w in want), None, None, None, None)

@@ -64,18 +64,20 @@ def segment_mp(messages: torch.Tensor, dst_sorted: torch.Tensor, n_nodes: int) -
 
 class SegmentMP(torch.autograd.Function):
     """`segment_mp` with a gradient for ``messages``: ``SegmentMP.apply(
-    messages, dst_sorted, n_nodes)``."""
+    messages, dst_sorted, n_nodes)``. ``aggregate`` (default `segment_mp`)
+    runs the forward: the dry run (`repro_torch.extras.dryrun`) gives one
+    that prices the kernel."""
 
     @staticmethod
-    def forward(ctx, messages, dst_sorted, n_nodes):
+    def forward(ctx, messages, dst_sorted, n_nodes, aggregate=segment_mp):
         ctx.save_for_backward(dst_sorted)
         ctx.n_nodes = n_nodes
-        return segment_mp(messages, dst_sorted, n_nodes)
+        return aggregate(messages, dst_sorted, n_nodes)
 
     @staticmethod
     def backward(ctx, grad_out):
         if not ctx.needs_input_grad[0]:
-            return None, None, None
+            return None, None, None, None
         (dst,) = ctx.saved_tensors
         keep = (dst >= 0) & (dst < ctx.n_nodes)
         if ctx.n_nodes == 0:
@@ -83,4 +85,4 @@ class SegmentMP(torch.autograd.Function):
         else:
             grad = grad_out.index_select(0, torch.where(keep, dst, 0).long())
             grad = torch.where(keep[:, None], grad, 0.0)
-        return grad, None, None
+        return grad, None, None, None

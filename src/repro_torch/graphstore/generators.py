@@ -5,6 +5,9 @@ two real datasets (US Patents, WordNet). The real datasets are replaced by
 R-MAT graphs with matched node/edge/label counts, made from a seed.
 `ring_of_cliques` is the fixture whose range partition has a ring for its
 cluster graph: the case the sharded engine's ring fetch is built for.
+`molecule_batch` is the GNN ``molecule`` shape's input. Every generator
+makes the same numpy draws in the same order as the JAX package's, so a
+seed gives the same `Graph`.
 """
 from __future__ import annotations
 
@@ -62,6 +65,16 @@ def rmat(
     )
 
 
+def erdos_renyi(
+    n_nodes: int, n_edges: int, n_labels: int, *, seed: int = 0
+) -> Graph:
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, size=n_edges)
+    dst = rng.integers(0, n_nodes, size=n_edges)
+    labels = assign_labels(n_nodes, n_labels, rng)
+    return Graph.from_edges(n_nodes, src, dst, labels, n_labels)
+
+
 def ring_of_cliques(
     n_cliques: int, clique_size: int, n_labels: int, *, seed: int = 0
 ) -> Graph:
@@ -82,4 +95,55 @@ def ring_of_cliques(
     labels = assign_labels(n_nodes, n_labels, rng)
     return Graph.from_edges(
         n_nodes, np.concatenate(srcs), np.concatenate(dsts), labels, n_labels
+    )
+
+
+def grid_2d(rows: int, cols: int, n_labels: int, *, seed: int = 0) -> Graph:
+    rng = np.random.default_rng(seed)
+    n = rows * cols
+    idx = np.arange(n).reshape(rows, cols)
+    src = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    dst = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    labels = assign_labels(n, n_labels, rng)
+    return Graph.from_edges(n, src, dst, labels, n_labels)
+
+
+def paper_fig6_query_edges() -> tuple[list[tuple[str, str]], dict[str, str]]:
+    """The §5.2 walkthrough query: used to unit-test Algorithm 2.
+
+    Nodes a..f; Algorithm 2 with freq(l)=10 for all labels must produce
+    T1={d,(b,c,e,f)}, T2={c,(a,f)}, T3={b,(a,f)}.
+    """
+    edges = [
+        ("d", "b"), ("d", "c"), ("d", "e"), ("d", "f"),
+        ("c", "a"), ("c", "f"), ("b", "a"), ("b", "f"),
+    ]
+    labels = {v: v for v in "abcdef"}
+    return edges, labels
+
+
+def molecule_batch(
+    n_graphs: int,
+    nodes_per_graph: int,
+    avg_degree: float,
+    n_labels: int,
+    *,
+    seed: int = 0,
+) -> Graph:
+    """A disjoint union of small random molecules (batched-small-graphs
+    regime). Returned as one block-diagonal graph; `graph_id = node //
+    nodes_per_graph`. Each molecule draws ``e_per = max(1,
+    int(nodes_per_graph * avg_degree / 2))`` edges (rounded down);
+    `Graph.from_edges` then drops self-loops and duplicates and stores each
+    edge in both directions, so the graph has at most ``2 · n_graphs ·
+    e_per`` directed edges."""
+    rng = np.random.default_rng(seed)
+    n = n_graphs * nodes_per_graph
+    e_per = max(1, int(nodes_per_graph * avg_degree / 2))
+    src = rng.integers(0, nodes_per_graph, size=(n_graphs, e_per))
+    dst = rng.integers(0, nodes_per_graph, size=(n_graphs, e_per))
+    offs = (np.arange(n_graphs) * nodes_per_graph)[:, None]
+    labels = assign_labels(n, n_labels, rng)
+    return Graph.from_edges(
+        n, (src + offs).ravel(), (dst + offs).ravel(), labels, n_labels
     )

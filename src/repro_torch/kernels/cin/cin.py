@@ -85,12 +85,15 @@ def grad_w(xk: torch.Tensor, x0: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 class CinLayer(torch.autograd.Function):
     """`cin_layer` with gradients for xk, x0 and w:
-    ``CinLayer.apply(xk, x0, w)``."""
+    ``CinLayer.apply(xk, x0, w)``. ``layer`` (default `cin_layer`) is what
+    runs each CIN layer, forward and backward: the dry run
+    (`repro_torch.extras.dryrun`) gives one that prices the kernel."""
 
     @staticmethod
-    def forward(ctx, xk, x0, w):
+    def forward(ctx, xk, x0, w, layer=cin_layer):
         ctx.save_for_backward(xk, x0, w)
-        return cin_layer(xk, x0, w)
+        ctx.layer = layer
+        return layer(xk, x0, w)
 
     @staticmethod
     def backward(ctx, g):
@@ -100,9 +103,9 @@ class CinLayer(torch.autograd.Function):
         w3 = w.view(H, m, Hp)
         gxk = gx0 = gw = None
         if ctx.needs_input_grad[0]:
-            gxk = cin_layer(g, x0, w3.permute(2, 1, 0).reshape(Hp * m, H))
+            gxk = ctx.layer(g, x0, w3.permute(2, 1, 0).reshape(Hp * m, H))
         if ctx.needs_input_grad[1]:
-            gx0 = cin_layer(g, xk, w3.permute(2, 0, 1).reshape(Hp * H, m))
+            gx0 = ctx.layer(g, xk, w3.permute(2, 0, 1).reshape(Hp * H, m))
         if ctx.needs_input_grad[2]:
             gw = grad_w(xk, x0, g)
-        return gxk, gx0, gw
+        return gxk, gx0, gw, None

@@ -44,7 +44,7 @@ from torch import nn
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
-from repro_torch.models.schema import attach, load_jax_params
+from repro_torch.models.schema import attach, default_generator, load_jax_params
 
 
 class GraphBatch(NamedTuple):
@@ -163,7 +163,7 @@ class GNN(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            generator = default_generator(dev)
         self.cfg = cfg
         self.kernels = resolve_kernels(kernels, dev)
         attach(self, gnn_schema(cfg), generator, dev)

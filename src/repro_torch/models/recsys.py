@@ -25,7 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
-from repro_torch.models.schema import init_param, load_jax_params
+from repro_torch.models.schema import default_generator, init_param, load_jax_params
 
 
 def recsys_schema(cfg: RecSysConfig) -> dict[str, tuple[tuple[int, ...], str]]:
@@ -113,7 +113,7 @@ class XDeepFM(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            generator = default_generator(dev)
         self.cfg = cfg
         self.kernels = resolve_kernels(kernels, dev)
         self.cin = nn.ParameterDict()

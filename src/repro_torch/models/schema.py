@@ -20,7 +20,15 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 WHOLE_DRAW_BYTES = 4 << 30
 
 
-def init_param(shape, kind: str, generator: torch.Generator, device,
+def default_generator(device: torch.device) -> torch.Generator | None:
+    """The models' default parameter draw: seed 0 on ``device``; None on
+    ``meta``, whose tensors hold no values to draw."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def init_param(shape, kind: str, generator: torch.Generator | None, device,
                dtype: str = "float32") -> torch.Tensor:
     """The JAX schema's init kinds (``src/repro/models/schema.py``): ``he``
     and ``lecun`` are normals scaled by the fan-in (``shape[-2]``, or

@@ -64,7 +64,7 @@ from repro_torch.models.layers import (
     glu_mlp,
     rms_norm,
 )
-from repro_torch.models.schema import DTYPES, attach, load_jax_params
+from repro_torch.models.schema import DTYPES, attach, default_generator, load_jax_params
 
 
 # ------------------------------------------------------------------ schema
@@ -184,7 +184,7 @@ class Transformer(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            generator = default_generator(dev)
         self.cfg = cfg
         self.kernels = resolve_kernels(kernels, dev)
         attach(self, lm_schema(cfg), generator, dev)

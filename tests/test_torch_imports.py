@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and no ``examples/torch_*.py`` imports ``jax`` or
+anything of the JAX package ``repro``
 (its numpy-only modules included — they are copied, not imported). Checked
 on the source with `ast`, so nothing is imported to check it."""
 import ast
@@ -10,7 +11,8 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -63,8 +65,12 @@ def test_the_port_has_its_modules():
                 "analysis/staticcheck/archlint.py", "analysis/staticcheck/cachekeys.py",
                 "analysis/staticcheck/contracts.py", "analysis/staticcheck/engines.py",
                 "analysis/staticcheck/costmodel.py",
-                "analysis/staticcheck/collective_safety.py"):
+                "analysis/staticcheck/collective_safety.py", "extras/shapes.py",
+                "extras/dryrun.py"):
         assert f"src/repro_torch/{mod}" in names
+    assert [f.name for f in EXAMPLES] == [
+        "torch_distributed_query.py", "torch_quickstart.py", "torch_serve_queries.py",
+        "torch_train_lm.py"]
     for src in ("bitset.cu", "bitset.cuh", "stwig_expand.cu", "hash_join.cu", "cin.cu",
                 "segment_mp.cu", "join_probe.cu", "probe.cuh", "flash_attention.cu",
                 "flash_attention_tc.cu", "flash_attention_tf32.cu", "hopper.cuh"):
