@@ -119,6 +119,22 @@ result lines are printed only when every phase passed):
      and on the last shard's ids (global ids from 15 · 236,632 up) each
      ``stwig_expand`` call and ``candidate_filter`` on each of its
      children are bit-exact against the plain versions;
+  ranks — the paper's engine with one shard a process: [sharded]'s 16
+     shards, saved once by this process (``PartitionedGraph.save``, the
+     cluster-graph index beside it) and opened by 16 gloo ranks
+     (``spawn_ranks``; each maps its own shard's pages) with
+     ``GraphSession.open(pg, backend="sharded", mesh=make_host_mesh(16))``,
+     every rank on ``cuda:0`` with the CUDA kernels (the one card takes no
+     NCCL group of two ranks); phase 3's queries and stream, each rank's
+     counts zeroed before and read after (each rank launches each of the
+     matcher's five kernels; no rank builds a library); every rank's rows
+     and pages identical to [sharded]'s, truncated ones included, and each
+     row an embedding; on rank 15 each ``stwig_expand`` call and
+     ``candidate_filter`` on each of its children bit-exact against the
+     plain versions (every rank re-runs on them: the same rows). Measured,
+     not held: three repeats a query (wall and stage times), each rank's
+     peak memory, and the bytes the rank collectives staged through pinned
+     host memory (``rank_collectives.GLOO_HOST_OPS``);
   7. a 2,000-node graph gives the same rows on the CPU and on the card, on
      the local engine and on the sharded one at S = 4 (smaller tables:
      every CPU shard probes all four shards' tables);
@@ -133,6 +149,17 @@ result lines are printed only when every phase passed):
      ``"slow"``); the matcher's five kernels launched under chaos (counted);
      forced overflow on the local engine under ``RetryPolicy(ceiling_bytes=
      1.0)``: partial, ``"overflow-ceiling"``, its rows a subset;
+  ranks-small — phase 7's graph in 4 shards, one spawn of 8 gloo ranks as
+     a (2, 4) mesh: a row of 4 on ``cuda:0`` (counted: each rank launches
+     the matcher's five) and a row of 4 on the CPU (``kernels="torch"``),
+     each row a mesh of its own: phase 7's queries give the stacked
+     engine's rows on the card on all 8, and on the card's row the four
+     chaos cases give its rows, completeness, reason, shard health and
+     fetch retries; ``compressed_psum`` over each row's 4 against the
+     single-process int8 sum (within 1e-6 of max|x|) and ``gpipe`` over the
+     2-rank pod dim of a (4, 2) mesh against the two stages applied in
+     order (within 1e-5); the card's row runs [analysis]'s rank-engine
+     probe too;
   8. recsys — xDeepFM at its published widths (39 fields, 1,000,000 rows a
      field, embed 10, CIN 200-200-200, MLP 400-400, bag 4; random weights
      from seed 0) built on the card and served through ``make_serve_fns``:
@@ -336,6 +363,18 @@ MOE_MLA_SERVE = {"deepseek-v3-671b": dict(n_layers=5, batch=2, seq=2048, decode=
 # [small]'s 4 shards on the CPU: every shard probes the fetched tables of all
 # four, so the tables are kept small there (on the card too, for the same rows)
 SMALL_SHARDED_CAPS = dict(emission_budget=1 << 12, join_rows_cap=1 << 14)
+# [chaos]'s and [ranks-small]'s seeded faults on the small graph's 4 shards
+CHAOS_FAULTS = {
+    "dead shard 1, never heals": dict(dead_shard=1),
+    "dead shard 2, heals after 2 attempts": dict(dead_shard=2, dead_heals_after=2),
+    "shard 3's fetch truncated to keep_frac 0.5": dict(truncate_shard=3,
+                                                     truncate_keep_frac=0.5),
+    "shard 0 slow (5 ms)": dict(slow_shard=0, slow_delay_s=0.005),
+}
+# [ranks]: one gloo rank a shard of [sharded]'s 16, every rank on cuda:0
+RANKS = 16
+# [ranks-small]: compressed_psum's gradients (4 ranks) and gpipe's 2 stages
+RANKS_SMALL = dict(ranks=4, grad=(64, 1000), stages=2, micro=4, mb=8, d=64)
 # gemma-2b trained at its published widths and full depth: 4 steps of 2 x 2,048
 # lm_batch tokens; xDeepFM at its train_batch (65,536, the JAX package's
 # extras/shapes.py); GatedGCN on [gnn]'s minibatch_lg batch
@@ -1330,15 +1369,16 @@ def complete_queries(session, g, n: int = 4, tries: int = 200) -> list:
     return out
 
 
-def phase_sharded(g, edge_keys, queries, local_full) -> None:
+def phase_sharded(g, edge_keys, queries, local_full) -> dict:
     """The sharded engine (paper §4.3) with the paper's shard size
     (`configs/stwig.py`: 250,000 nodes a shard) on the main path's graph and
     queries, every shard on the card. ``local_full``: the local session's
     (query, row set, complete) at ``max_matches=0`` of each main-path query
-    and of `complete_queries`."""
+    and of `complete_queries`. Returns the partition, its cluster-graph
+    index, and the queries' rows and stream pages, for [ranks]."""
     from repro_torch.api import GraphSession
     from repro_torch.configs import stwig
-    from repro_torch.core.backend import Kernels, get_kernels
+    from repro_torch.core.backend import Kernels
     from repro_torch.graphstore.partition import PartitionedGraph
     from repro_torch.kernels import cuda
 
@@ -1449,32 +1489,45 @@ def phase_sharded(g, edge_keys, queries, local_full) -> None:
         (a.shape == b.shape) and (a == b).all() for a, b in zip(stream_cuda, stream_torch)
     ):
         fail("sharded stream pages differ between kernels='cuda' and kernels='torch'")
+    n_filter = expand_checks(recorder.expands, f"shard {S - 1}")
+    log(f"[sharded] kernels='torch' on the card: rows and stream pages identical to "
+        f"kernels='cuda'; on shard {S - 1}'s ids (global ids {(S - 1) * pg.cap} and up) "
+        f"stwig_expand bit-exact on its {len(recorder.expands)} calls and candidate_filter on "
+        f"{n_filter} (call, child) inputs, its per-root sums equal to stwig_expand's counts")
+    out = dict(pg=pg, rows=rows_cuda, stream=stream_cuda)
+    del session, eng, recorder
+    torch.cuda.empty_cache()
+    return out
+
+
+def expand_checks(expands, where: str) -> int:
+    """Each recorded plain ``stwig_expand`` call ``(args, kw, cand, cnt)``
+    again on the kernel, bit-exact, and ``candidate_filter`` on each of its
+    children against its plain version, its per-root sums equal to the
+    call's counts. Returns the (call, child) inputs held."""
+    from repro_torch.core.backend import get_kernels
+
     cuda_k, plain = get_kernels("cuda"), get_kernels("torch")
     n_filter = 0
-    for args, kw, cand, cnt in recorder.expands:
+    for args, kw, cand, cnt in expands:
         got = cuda_k.stwig_expand(*args, **kw)
         if not (torch.equal(got[0], cand) and torch.equal(got[1], cnt)):
-            fail(f"stwig_expand differs from its plain version on shard {S - 1}'s ids")
+            fail(f"stwig_expand differs from its plain version on {where}'s ids")
         words_k, dst, lab, indptr, rok = args
         for i, label in enumerate(kw["child_labels"]):
             words = words_k[i] if kw["child_bound"][i] else torch.full_like(words_k[i], -1)
             mask = cuda_k.candidate_filter(words, dst, lab, rok, label)
             if not torch.equal(mask, plain.candidate_filter(words, dst, lab, rok, label)):
-                fail(f"candidate_filter differs from its plain version on shard {S - 1}")
+                fail(f"candidate_filter differs from its plain version on {where}")
             cs = torch.cat([mask.new_zeros(1, dtype=torch.int64), torch.cumsum(mask, 0)])
             sums = cs[indptr[1:kw["cap"] + 1].long()] - cs[indptr[:kw["cap"]].long()]
             if not torch.equal(sums.to(torch.int32), cnt[i]):
                 fail(f"candidate_filter's per-root sums differ from stwig_expand's counts on "
-                     f"shard {S - 1}")
+                     f"{where}")
             n_filter += 1
-    if not recorder.expands:
-        fail(f"the sharded path never expanded on shard {S - 1}")
-    log(f"[sharded] kernels='torch' on the card: rows and stream pages identical to "
-        f"kernels='cuda'; on shard {S - 1}'s ids (global ids {(S - 1) * pg.cap} and up) "
-        f"stwig_expand bit-exact on its {len(recorder.expands)} calls and candidate_filter on "
-        f"{n_filter} (call, child) inputs, its per-root sums equal to stwig_expand's counts")
-    del session, eng, recorder
-    torch.cuda.empty_cache()
+    if not expands:
+        fail(f"the sharded path never expanded on {where}")
+    return n_filter
 
 
 def sharded_small(small, queries, caps) -> str:
@@ -1503,6 +1556,313 @@ def sharded_small(small, queries, caps) -> str:
         fail("no small-graph query was complete on both engines: nothing held the 4 shards")
     return (f"sharded at S = 4 ({caps}): {len(queries)} queries, {n_rows} rows, identical on "
             f"CPU and card, the local session's set on the {n_same} complete ones")
+
+
+# ------------------------------------------------------------------ [ranks]
+def ranks_rank(rank: int, path: str, queries, n_ranks: int, t_spawn: float) -> dict:
+    """[ranks] in one rank process: the saved partition opened on a mesh of
+    the world (its own shard to ``cuda:0``), the queries and stream counted,
+    three repeats a query, then the same calls on the plain versions, the
+    last rank keeping its ``stwig_expand`` calls to hold the kernels on its
+    ids. Loads the kernel libraries phase 2 built; builds none.
+    ``t_spawn``: the parent's clock when it started the ranks."""
+    started = time.time() - t_spawn
+    from repro_torch.api import GraphSession
+    from repro_torch.core import rank_collectives as rc
+    from repro_torch.core.backend import Kernels
+    from repro_torch.graphstore.partition import PartitionedGraph
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import make_host_mesh
+
+    t0 = time.perf_counter()
+    path = pathlib.Path(path)
+    session = GraphSession.open(
+        PartitionedGraph.load(path / "pg"), backend="sharded", mesh=make_host_mesh(n_ranks))
+    torch.cuda.synchronize()
+    out = dict(device=str(session.device), kernels=session.kernels.name, started_s=started,
+               open_s=time.perf_counter() - t0, allocated=torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    rc.reset_staged_bytes()
+    rows, stream, report = run_queries(session, queries, queries[0])
+    torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    out.update(rows=rows, stream=stream, report=report, staged=dict(rc.staged_bytes),
+               launches={k: counts[k] for k in MATCHER_KERNELS},
+               peak=torch.cuda.max_memory_allocated())
+    out["repeats"] = repeat_times(session, queries)
+
+    class Expands(Kernels):
+        def __init__(self):
+            self.expands = []
+
+        def stwig_expand(self, *args, **kw):
+            cand, cnt = super().stwig_expand(*args, **kw)
+            if rank == n_ranks - 1:
+                self.expands.append((args, kw, cand, cnt))
+            return cand, cnt
+
+    plain = Expands()
+    session.set_kernels(plain)
+    rows_t, stream_t, _ = run_queries(session, queries, queries[0])
+    out["torch_same"] = (all(np.array_equal(a, b) for a, b in zip(rows, rows_t))
+                         and len(stream) == len(stream_t)
+                         and all(np.array_equal(a, b) for a, b in zip(stream, stream_t)))
+    if rank == n_ranks - 1:
+        out["tables"] = (len(plain.expands), expand_checks(plain.expands, f"rank {rank}"),
+                         rank * session.pg.cap)
+    out["sources_built"] = cuda.sources_built
+    return out
+
+
+def phase_ranks(g, edge_keys, queries, sharded: dict) -> None:
+    """[ranks]: the paper's engine with one shard a process — [sharded]'s
+    16 hash shards, one gloo rank each on ``cuda:0`` (`spawn_ranks`), each
+    rank's session opened with ``mesh=make_host_mesh(16)`` on the partition
+    saved once here (a rank maps its own shard's pages, never builds the
+    graph); the queries and stream held to [sharded]'s rows."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.rank_collectives import GLOO_HOST_OPS
+    from repro_torch.launch import spawn_ranks
+
+    pg, n = sharded["pg"], RANKS
+    if pg.n_shards != n:
+        fail(f"[ranks] [sharded]'s partition has {pg.n_shards} shards, not {n}")
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = pathlib.Path(tempfile.mkdtemp(prefix="ranks-", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        pg.save(path / "pg")
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = spawn_ranks(ranks_rank, n, str(path), queries, n, time.time(), timeout=900)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    for k, r in enumerate(res):
+        if r["kernels"] != "cuda" or r["device"] != "cuda:0" or r["sources_built"]:
+            fail(f"[ranks] rank {k}: kernels {r['kernels']!r} on {r['device']}, "
+                 f"{r['sources_built']} sources built")
+        for sym in MATCHER_KERNELS:
+            if r["launches"][sym] <= 0:
+                fail(f"[ranks] rank {k} never launched {sym}: {r['launches']}")
+        if not r["torch_same"]:
+            fail(f"[ranks] rank {k}: kernels='torch' gave other rows or pages than 'cuda'")
+        for i, (a, b) in enumerate(zip(r["rows"], sharded["rows"])):
+            if a.shape != b.shape or not (a == b).all():
+                fail(f"[ranks] rank {k}, q{i}: {len(a)} rows, not [sharded]'s {len(b)} in its order")
+        if len(r["stream"]) != len(sharded["stream"]) or not all(
+                a.shape == b.shape and (a == b).all() for a, b in zip(r["stream"], sharded["stream"])):
+            fail(f"[ranks] rank {k}: stream pages differ from [sharded]'s")
+    for q, rows in zip(queries, res[0]["rows"]):
+        embedding_check(g, edge_keys, q, rows)
+    n_calls, n_filter, first_id = res[-1]["tables"]
+    sums = {sym: sum(r["launches"][sym] for r in res) for sym in MATCHER_KERNELS}
+    lows = {sym: min(r["launches"][sym] for r in res) for sym in MATCHER_KERNELS}
+    staged = {}
+    for r in res:
+        for name, b in r["staged"].items():
+            staged[name] = staged.get(name, 0) + b
+    log(f"[ranks] {n} gloo ranks on cuda:0 (spawn_ranks, one shard a process), each on "
+        f"GraphSession.open(pg, backend='sharded', mesh=make_host_mesh({n})); partition saved "
+        f"in {t_save:.2f} s; ranks started, opened and done in {t_ranks:.2f} s: a rank's function "
+        f"entered {min(r['started_s'] for r in res):.2f}-{max(r['started_s'] for r in res):.2f} s "
+        f"after the spawn, its session open "
+        f"{min(r['open_s'] for r in res):.2f}-{max(r['open_s'] for r in res):.2f} s")
+    for line in res[0]["report"]:
+        log(f"[ranks] rank 0: {line}")
+    log(f"[ranks] launches summed over the ranks {sums}, the fewest on a rank {lows}: each "
+        f"rank launched each of the five; no rank built a kernel library")
+    log(f"[ranks] every rank's rows of the {len(queries)} queries (max_matches=1024, "
+        f"adaptive=False; {sum(len(r) == 1024 for r in res[0]['rows'])} truncated at 1,024) and "
+        f"the stream's {len(sharded['stream'])} pages identical to [sharded]'s, in order; every "
+        f"row a valid embedding; kernels='torch' gives the same on every rank")
+    log(f"[ranks] rank {n - 1} (global ids {first_id} and up): stwig_expand bit-exact on its "
+        f"{n_calls} calls and candidate_filter on {n_filter} (call, child) inputs, its "
+        f"per-root sums equal to stwig_expand's counts")
+    for line in res[0]["repeats"]:
+        log(f"[ranks] rank 0: {line}")
+    log(f"[ranks] max_memory_allocated a rank (GB): "
+        f"{[round(r['peak'] / 1e9, 3) for r in res]}; allocated after open "
+        f"{[round(r['allocated'] / 1e9, 3) for r in res]}")
+    log(f"[ranks] bytes staged through pinned host memory, summed over the ranks, by "
+        f"collective: {staged} (gloo ops staged on CUDA tensors: {sorted(GLOO_HOST_OPS)})")
+    log(f"[ranks] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------ [ranks-small]
+def small_rank_inputs(seed: int = 0) -> dict:
+    """[ranks-small]'s compressed_psum gradients and EF errors (one a rank)
+    and gpipe's stage weights and microbatches, from a seed."""
+    c = RANKS_SMALL
+    rng = np.random.default_rng(seed)
+    return {
+        "grad": rng.normal(size=(c["ranks"],) + c["grad"]).astype(np.float32),
+        "ef": (rng.normal(size=(c["ranks"],) + c["grad"]) * 1e-3).astype(np.float32),
+        "ws": (rng.normal(size=(c["stages"], c["d"], c["d"])) * 0.15).astype(np.float32),
+        "x": rng.normal(size=(c["micro"], c["mb"], c["d"])).astype(np.float32),
+    }
+
+
+def small_rank(rank: int, pg, queries, held, caps, t_spawn: float) -> dict:
+    """[ranks-small] in one of 8 rank processes, a (2, 4) mesh: ranks 0-3
+    (the first row) on ``cuda:0`` with the CUDA kernels, counted, ranks 4-7
+    on the CPU with the plain versions; each row a 4-rank mesh of its own.
+    Both rows run the small graph's queries, `compressed_psum` over their
+    4 and `gpipe` over the pod dim of a (4, 2) mesh; the card's row also
+    runs `CHAOS_FAULTS` on the ``held`` queries and the engine probe of
+    [analysis]. Each part's seconds are returned beside its results, and
+    when the function was entered after ``t_spawn``, the parent's clock
+    when it started the ranks."""
+    started = time.time() - t_spawn
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.analysis.staticcheck import engines
+    from repro_torch.api import GraphSession
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import gpipe
+    from repro_torch.optim import EFState, compressed_psum
+    from repro_torch.runtime import ChaosConfig, ChaosInjector, RetryPolicy
+
+    n = RANKS_SMALL["ranks"]
+    on_card = rank < n
+    dev = torch.device("cuda:0" if on_card else "cpu")
+    kw = dict(device=None if on_card else "cpu", kernels="auto" if on_card else "torch")
+    mesh = init_device_mesh("cpu", (2, n), mesh_dim_names=("where", "data"))["data"]
+    pods = init_device_mesh("cpu", (2 * n // RANKS_SMALL["stages"], RANKS_SMALL["stages"]),
+                            mesh_dim_names=("data", "pod"))
+    secs = {"entered": started, "meshes": time.time() - t_spawn}
+    t0 = time.perf_counter()
+    session = GraphSession.open(pg, mesh=mesh, **kw)
+    out = {"kernels": session.kernels.name, "device": str(session.device)}
+    cuda.reset_launch_counts()
+    out["rows"] = [(r.rows, r.complete) for r in
+                   (session.run(q, max_matches=0, **caps) for q in queries)]
+    if on_card:
+        torch.cuda.synchronize()
+    counts = cuda.launch_counts()
+    out["launches"] = {k: counts[k] for k in MATCHER_KERNELS}
+    secs["queries"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in small_rank_inputs().items()}
+    me = rank % n
+    red, ef = compressed_psum(inp["grad"][me], EFState(inp["ef"][me]), mesh.get_group())
+    out["psum"] = (red.cpu().numpy(), ef.error.cpu().numpy())
+    pipe = gpipe(lambda w, x: torch.tanh(x @ w), pods, axis="pod")
+    out["gpipe"] = pipe(inp["ws"][rank % RANKS_SMALL["stages"]], inp["x"]).cpu().numpy()
+    secs["psum+gpipe"] = time.perf_counter() - t0
+    if on_card:
+        t0 = time.perf_counter()
+        out["chaos"] = {}
+        for what, fault in CHAOS_FAULTS.items():
+            res = []
+            for q in held:
+                s = GraphSession.open(
+                    pg, mesh=mesh, chaos=ChaosInjector(ChaosConfig(seed=0, **fault)), **kw)
+                r = s.run(q, max_matches=0, adaptive=False, retry_policy=RetryPolicy(), **caps)
+                res.append((r.rows, r.complete, r.stats.degrade_reason, r.stats.shard_health,
+                            r.stats.fetch_retries))
+            out["chaos"][what] = res
+        secs["chaos"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["probe"] = engines.rank_probe(me, "cuda", None, mesh=mesh)
+        secs["probe"] = time.perf_counter() - t0
+    out["secs"] = secs
+    out["sources_built"] = cuda.sources_built
+    return out
+
+
+def phase_ranks_small(small, queries, caps) -> list:
+    """[ranks-small]: the 2,000-node graph's 4 shards as 4 gloo ranks on
+    the card and 4 on the CPU, one spawn of 8 (`small_rank`), held to the
+    stacked engine on the card (rows; on the card's ranks the chaos cases'
+    rows and shard health), `compressed_psum` to its plain single-process
+    counterpart and `gpipe` to the sequential stages. Returns the card
+    ranks' engine probes, for [analysis]."""
+    from repro_torch.api import GraphSession
+    from repro_torch.graphstore.partition import PartitionedGraph
+    from repro_torch.launch import spawn_ranks
+    from repro_torch.runtime import ChaosConfig, ChaosInjector, RetryPolicy
+
+    t_phase = time.perf_counter()
+    n = RANKS_SMALL["ranks"]
+    pg4 = PartitionedGraph.build(small, n)
+    stacked = GraphSession.open(pg4)
+    want = [stacked.run(q, max_matches=0, **caps) for q in queries]
+    held = [q for q, r in zip(queries, want) if r.complete and r.n_matches]
+    want_chaos = {}
+    for what, fault in CHAOS_FAULTS.items():
+        want_chaos[what] = []
+        for q in held:
+            s = GraphSession.open(pg4, chaos=ChaosInjector(ChaosConfig(seed=0, **fault)))
+            r = s.run(q, max_matches=0, adaptive=False, retry_policy=RetryPolicy(), **caps)
+            want_chaos[what].append((r.rows, r.complete, r.stats.degrade_reason,
+                                     r.stats.shard_health, r.stats.fetch_retries))
+    t_ref = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    res = spawn_ranks(small_rank, 2 * n, pg4, queries, held, caps, time.time(), timeout=600)
+    t_ranks = time.perf_counter() - t0
+    card, host = res[:n], res[n:]
+    for k, r in enumerate(res):
+        where = "card" if k < n else "cpu"
+        if (r["kernels"], r["device"]) != (("cuda", "cuda:0") if k < n else ("torch", "cpu")) \
+                or r["sources_built"]:
+            fail(f"[ranks-small] rank {k}: kernels {r['kernels']!r} on {r['device']}, "
+                 f"{r['sources_built']} sources built")
+        for i, ((rows, complete), w) in enumerate(zip(r["rows"], want)):
+            if complete != w.complete or rows.shape != w.rows.shape or not (rows == w.rows).all():
+                fail(f"[ranks-small] {where} rank {k}, q{i}: {len(rows)} rows, complete "
+                     f"{complete}; the stacked engine's {w.n_matches}, {w.complete}")
+    for k, r in enumerate(card):
+        for sym in MATCHER_KERNELS:
+            if r["launches"][sym] <= 0:
+                fail(f"[ranks-small] card rank {k} never launched {sym}: {r['launches']}")
+        for what, cases in want_chaos.items():
+            for i, (got, exp) in enumerate(zip(r["chaos"][what], cases)):
+                if not (np.array_equal(got[0], exp[0]) and got[1:] == exp[1:]):
+                    fail(f"[ranks-small] card rank {k}, {what}, held q{i}: {len(got[0])} "
+                         f"rows, {got[1:]}; the stacked engine's {len(exp[0])}, {exp[1:]}")
+    inp = {k: torch.from_numpy(v).cuda() for k, v in small_rank_inputs().items()}
+    x = inp["grad"] + inp["ef"]
+    scale = torch.clamp(x.abs().amax(dim=(1, 2)) / 127.0, min=1e-12).max()
+    # the int8 payload written out, independent of the port: round half to
+    # even, clip to ±127
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    mean = (q.to(torch.int32).sum(0).to(torch.float32) * scale / n).cpu().numpy()
+    err = (x - q.to(torch.float32) * scale).cpu().numpy()
+    tol = 1e-6 * float(x.abs().max())
+    y = inp["x"]
+    for s in range(RANKS_SMALL["stages"]):
+        y = torch.tanh(y @ inp["ws"][s])
+    y = y.cpu().numpy()
+    worst = {"psum": 0.0, "ef": 0.0, "gpipe": 0.0}
+    for k, r in enumerate(res):
+        worst["psum"] = max(worst["psum"], float(np.abs(r["psum"][0] - mean).max()))
+        worst["ef"] = max(worst["ef"], float(np.abs(r["psum"][1] - err[k % n]).max()))
+        worst["gpipe"] = max(worst["gpipe"], float(np.abs(r["gpipe"] - y).max()))
+    if worst["psum"] > tol or worst["ef"] > tol or worst["gpipe"] > 1e-5:
+        fail(f"[ranks-small] compressed_psum / gpipe against the plain versions: {worst} "
+             f"(tolerances {tol:.3g}, {tol:.3g}, 1e-5)")
+    log(f"[ranks-small] one spawn of 8 gloo ranks, a (2, 4) mesh: 4 on cuda:0 with the CUDA "
+        f"kernels, 4 on the CPU with kernels='torch' ({t_ranks:.2f} s; the stacked references "
+        f"{t_ref:.2f} s): {len(queries)} queries' rows identical to the stacked engine's on the "
+        f"card ({sum(w.n_matches for w in want)} rows) on all 8; launches a card rank "
+        f"{[r['launches'] for r in card]}")
+    log(f"[ranks-small] seconds a part, card ranks {[r['secs'] for r in card]}; CPU ranks "
+        f"{[r['secs'] for r in host]}")
+    log(f"[ranks-small] the four chaos cases on {len(held)} queries: rows, completeness, "
+        f"reason, shard health and fetch retries equal to the stacked engine's on every card "
+        f"rank ({ {w: sorted({tuple(sorted(c[3].items())) for c in v}) for w, v in want_chaos.items()} })")
+    log(f"[ranks-small] compressed_psum over each row's 4 ranks (gradients {RANKS_SMALL['grad']}) "
+        f"against the single-process int8 sum: max |mean error| {worst['psum']:.3g}, max |EF "
+        f"residual error| {worst['ef']:.3g} (tol {tol:.3g}); gpipe over the 2 stages of each "
+        f"pod ({RANKS_SMALL['micro']} microbatches of {RANKS_SMALL['mb']} x {RANKS_SMALL['d']}) "
+        f"against the sequential stages: max |diff| {worst['gpipe']:.3g} (tol 1e-5)")
+    log(f"[ranks-small] phase {time.perf_counter() - t_phase:.1f} s")
+    return [r["probe"] for r in card]
 
 
 # ------------------------------------------------------------------ [serve]
@@ -1640,15 +2000,8 @@ def phase_chaos(small, queries, caps) -> None:
     if not held:
         fail("[chaos] no query is complete on both clean engines: nothing holds the faults")
     policy = RetryPolicy()
-    faults = {
-        "dead shard 1, never heals": dict(dead_shard=1),
-        "dead shard 2, heals after 2 attempts": dict(dead_shard=2, dead_heals_after=2),
-        "shard 3's fetch truncated to keep_frac 0.5": dict(truncate_shard=3,
-                                                         truncate_keep_frac=0.5),
-        "shard 0 slow (5 ms)": dict(slow_shard=0, slow_delay_s=0.005),
-    }
     cuda.reset_launch_counts()
-    for what, kw in faults.items():
+    for what, kw in CHAOS_FAULTS.items():
         n_rows, health = [], set()
         for q, want_local, want_clean in held:
             s = GraphSession.open(pg4, chaos=ChaosInjector(ChaosConfig(seed=0, **kw)))
@@ -3347,18 +3700,36 @@ CONTRACT_KERNELS = {
 }
 
 
-def phase_analysis(smi: str) -> None:
+def phase_analysis(smi: str, rank_probes: list | None = None) -> None:
     """[analysis]: the port's static analyzer (`repro_torch.analysis`) on the
     card, every pass on, over the CUDA kernels: zero findings, each
     contracted op's kernel launched in the contract pass and the matcher's
     five in each engine's probe; then each probe step's cost-model peak
-    beside the card's own count, and the engines' rooflines."""
+    beside the card's own count, and the engines' rooflines. With
+    ``rank_probes`` (each card rank's `engines.rank_probe` from
+    [ranks-small]), the collective-safety pass on the rank engine too: no
+    finding on any rank, the ranks' call sequences alike, and each rank's
+    probe launching the matcher's five."""
     from repro_torch.analysis import roofline
-    from repro_torch.analysis.staticcheck import costmodel, run_all
+    from repro_torch.analysis.staticcheck import costmodel, engines, run_all
     from repro_torch.core.backend import op_contracts
     from repro_torch.kernels import cuda
 
     t0 = time.perf_counter()
+    if rank_probes is not None:
+        findings = engines.check_rank_probes(rank_probes)
+        for f in findings:
+            log(f"[analysis] rank probe finding: {f}")
+        if findings:
+            fail(f"[analysis] {len(findings)} finding(s) on the rank engine's probe")
+        for p in rank_probes:
+            if any(p["launches"].get(sym, 0) <= 0 for sym in MATCHER_KERNELS):
+                fail(f"[analysis] rank {p['rank']}'s probe launched {p['launches']}")
+        seq = rank_probes[0]["sequence"]
+        log(f"[analysis] collective safety on the rank engine's probe ({len(rank_probes)} "
+            f"ranks on cuda:0, [ranks-small]'s run): 0 findings; {len(seq)} collectives a "
+            f"rank, the same on every rank, each on a group of {sorted({g for _, g in seq})} "
+            f"ranks; launches a rank {[p['launches'] for p in rank_probes]}")
     reports: dict = {}
     cuda.reset_launch_counts()
     findings = run_all(ROOT, device="cuda", kernel_backends=("cuda",), reports=reports)
@@ -3864,7 +4235,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- [sharded]: the paper's engine, its 16 shards stacked on the card ---
-    phase_sharded(g, edge_keys, queries, local_full)
+    sharded = phase_sharded(g, edge_keys, queries, local_full)
+
+    # ---- [ranks]: the paper's engine with one shard a process, on the card -
+    phase_ranks(g, edge_keys, queries, sharded)
+    del sharded
 
     # ---- phase 7: a small graph, CPU vs card -------------------------------
     small = generators.rmat(2000, 8000, 24, seed=0)
@@ -3882,6 +4257,9 @@ def main() -> None:
 
     # ---- [chaos]: seeded faults on the small graph's 4 shards and engine --
     phase_chaos(small, make_queries(small, 6, seed=1), SMALL_SHARDED_CAPS)
+
+    # ---- [ranks-small]: 4 ranks on the card and 4 on the CPU, small graph ---
+    rank_probes = phase_ranks_small(small, make_queries(small, 6, seed=1), SMALL_SHARDED_CAPS)
     del g, pg, edge_keys, s_cpu, s_gpu
     torch.cuda.empty_cache()
 
@@ -3919,7 +4297,7 @@ def main() -> None:
 
     # ---- [analysis]: the static analyzer's five passes on the card, last, so
     # the main path's first calls are as cold as before it was added ---------
-    phase_analysis(smi)
+    phase_analysis(smi, rank_probes)
     if sorted(r["name"] for r in kernel_rows) != sorted(KERNEL_INFO):
         fail(f"the kernel line has {[r['name'] for r in kernel_rows]}, not {list(KERNEL_INFO)}")
 

@@ -7,17 +7,23 @@ S shards are stacked on one device and each collective of
 so the pass reads the calls themselves: `Recording` installs the module's
 ``recorder`` hook and an op recorder (`oplog`) around a run, and `check`
 holds every recorded call to the JAX package's four invariants, in their
-stacked form:
+stacked form. The rank collectives (`repro_torch.core.rank_collectives`,
+one shard a process) report to the same hook with their ``group_size``;
+their calls are held to the same invariants in their per-rank form (noted
+under each), and `check_rank_sequences` holds the ranks' call sequences to
+one another:
 
   * ``coll-divergent-control`` — every shard enters the collective: its
     shard-stacked operands agree on dim 0 (a collective some shards skip
-    is the SPMD deadlock the JAX rule guards against);
+    is the SPMD deadlock the JAX rule guards against); per rank, every
+    rank made the same sequence of collectives on groups of one size;
   * ``coll-ppermute-bijection`` — each shift of the ring fetch hands every
     shard exactly one source: its source map is a permutation of
     ``0..S-1`` (a missing source silently drops a neighbour's table);
   * ``coll-axis-name`` — the shard dim resolves against the session: the
     stacked dim 0 (and the load set's both dims) is the engine's
-    ``n_shards``;
+    ``n_shards``; per rank, the group has ``n_shards`` ranks and the load
+    row ``n_shards`` entries;
   * ``coll-head-gather`` — Theorem 5: no fetch operand derives from the
     head-STwig table. The head table's storages are the results of the
     head STwig's match steps (found from the step keys, as the JAX
@@ -58,6 +64,7 @@ class CollectiveCall:
     n_shards: int                # the session's S
     result_bytes_per_shard: float
     sources: tuple = ()          # ring: one source map a shift
+    group_size: int = 0          # a rank collective's group (0: stacked)
     position: int = 0            # ops in the run's log before the call
     args: tuple = ()             # (operands, info): to run the call again
 
@@ -66,8 +73,17 @@ def _per_shard_bytes(name: str, result, info: dict, S: int) -> float:
     """Bytes each shard receives: the replicated result of a reduction;
     the gathered rows and the shard's validity row of an all-gather; the
     ring's fetched blocks (its own block excluded)."""
-    if name in ("or_allreduce", "pmax", "bool_allreduce_any"):
+    if name in ("or_allreduce", "pmax", "psum", "bool_allreduce_any"):
         return float(result.nbytes)
+    if info.get("group_size"):
+        # a rank's own receipts: the others' blocks of a gather or ring
+        if name == "gather_rows":
+            return float(sum(r.nbytes for r in result))
+        if name in ("gather_load_set", "gather_load_set_ring"):
+            n_blocks = (len(info.get("sources", ())) + 1 if name == "gather_load_set_ring"
+                        else info["group_size"])
+            return (float(result[0].nbytes) + float(result[1].nbytes)) * (n_blocks - 1) / n_blocks
+        return 0.0
     if name == "gather_load_set":
         cols, mask = result
         return float(cols.nbytes) + float(mask.nbytes) / max(S, 1)
@@ -108,6 +124,7 @@ class Recording:
                 n_shards=self.n_shards,
                 result_bytes_per_shard=_per_shard_bytes(name, result, info, self.n_shards),
                 sources=sources,
+                group_size=int(info.get("group_size", 0)),
                 position=len(self.log.ops),
                 args=(dict(operands), dict(info)),
             ))
@@ -163,7 +180,13 @@ def check_calls(calls, target: str, *, log=None, sources=()) -> list[Finding]:
     for c, tainted in zip(calls, taints):
         S = c.n_shards
         lead = {k: v[0] for k, v in c.dims.items() if len(v)}
-        if len(set(lead.values())) > 1:
+        if c.group_size:
+            load = c.dims.get("load")
+            if c.group_size != S or (load is not None and tuple(load) != (S,)):
+                emit("coll-axis-name", c.name,
+                     f"`{c.name}` on a group of {c.group_size} ranks with load row "
+                     f"{load}, not the session's {S} shards")
+        elif len(set(lead.values())) > 1:
             emit("coll-divergent-control", c.name,
                  f"`{c.name}` operands stack {lead} shards on dim 0 — every "
                  "shard must enter the collective")
@@ -185,6 +208,27 @@ def check_calls(calls, target: str, *, log=None, sources=()) -> list[Finding]:
                  f"head-STwig table reaches `{c.name}` — Theorem 5 requires "
                  "the head to stay on its shard (fetched head rows break "
                  "per-shard page disjointness)")
+    return findings
+
+
+def rank_sequence(calls) -> list[tuple[str, int]]:
+    """A rank's collective calls as (name, group size), in order."""
+    return [(c.name, c.group_size) for c in calls]
+
+
+def check_rank_sequences(sequences, target: str) -> list[Finding]:
+    """``coll-divergent-control`` across ranks: every rank's `rank_sequence`
+    must be rank 0's (a rank that makes another call, or one fewer, leaves
+    the others waiting in a collective)."""
+    findings = []
+    for r, seq in enumerate(sequences[1:], start=1):
+        if seq != sequences[0]:
+            i = next((k for k, (a, b) in enumerate(zip(seq, sequences[0])) if a != b),
+                     min(len(seq), len(sequences[0])))
+            findings.append(Finding(
+                "coll-divergent-control", f"{target}:rank{r}", 0,
+                f"rank {r}'s collective {i} is {seq[i:i + 1]}, rank 0's "
+                f"{sequences[0][i:i + 1]} ({len(seq)} against {len(sequences[0])} calls)"))
     return findings
 
 

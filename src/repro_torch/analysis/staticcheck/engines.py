@@ -216,6 +216,65 @@ def probe_traces(
     return findings, traces
 
 
+def rank_probe(rank: int, kernels: str = "torch", device=None, mesh=None) -> dict:
+    """The engine probe on one rank of ``mesh`` (``None``: a mesh of the
+    world's ranks; run it in every rank of the mesh, by
+    `repro_torch.launch.mesh.spawn_ranks`): the probe graph in one shard a
+    rank, the rank engine's run, stream and re-stream recorded, the head
+    STwig's tables tainted, and the collective-safety pass over this rank's
+    calls. Returns this rank's findings, its call sequence (for
+    `collective_safety.check_rank_sequences`) and its kernel launches."""
+    from repro_torch.api.session import GraphSession
+    from repro_torch.core.backend import get_kernels, resolve_device
+    from repro_torch.graphstore.partition import PartitionedGraph
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = resolve_device(device)
+    mesh = make_host_mesh() if mesh is None else mesh
+    S = mesh.size()
+    target = f"engine:rank:{kernels}"
+    recording = collective_safety.Recording(S)
+    head: list = []
+
+    def recorder(key, fn, args, kwargs):
+        if head and key[0] == "match" and key[1] == head[0]:
+            return lambda out: (recording.taint(out[0].cols), recording.taint(out[0].valid))
+        return None
+
+    before = kernel_launches()
+    session = GraphSession.open(
+        PartitionedGraph.build(_tiny_graph(), S), mesh=mesh,
+        kernels=get_kernels(kernels), device=None if device is None else dev)
+    try:
+        session.cache.recorder = recorder
+        with recording:
+            compiled = session.compile(_probe_query(), max_matches=0, **PROBE_CAPS)
+            head.append(compiled.plan.specs[compiled.plan.head])
+            compiled.run(adaptive=False)
+            for _ in range(2):  # stream and re-stream
+                for _ in compiled.stream(page_size=16):
+                    pass
+        session.cache.recorder = None
+    finally:
+        session.close()
+    after = kernel_launches()
+    return {
+        "rank": rank,
+        "findings": collective_safety.check(recording, f"{target}:rank{rank}"),
+        "sequence": collective_safety.rank_sequence(recording.calls),
+        "launches": {k: after[k] - before.get(k, 0) for k in after
+                     if after[k] != before.get(k, 0)},
+    }
+
+
+def check_rank_probes(results, target: str = "engine:rank") -> list[Finding]:
+    """Every rank's findings of `rank_probe`, and the ranks' call sequences
+    held to one another."""
+    findings = [f for r in results for f in r["findings"]]
+    return findings + collective_safety.check_rank_sequences(
+        [r["sequence"] for r in results], target)
+
+
 def check_engines_traces(
     backends=ENGINE_BACKENDS, kernels=("torch",), *, device=None, scale: int = 1,
     collectives: bool = True, reports: dict | None = None,

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 from typing import Iterable, Sequence
 
+import torch
+
 from repro_torch.api.compiled import CompiledQuery
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
 from repro_torch.core.cache import ExecutableCache
@@ -16,6 +18,7 @@ from repro_torch.core.dist import DistributedMatcher
 from repro_torch.core.engine import SubgraphMatcher
 from repro_torch.core.plan import QueryPlan
 from repro_torch.core.query import QueryGraph
+from repro_torch.core.rank_dist import RankMatcher
 from repro_torch.core.result import MatchResult
 from repro_torch.graphstore.csr import Graph
 from repro_torch.graphstore.partition import PartitionedGraph
@@ -45,6 +48,7 @@ class GraphSession:
         kernels: "str | Kernels" = "auto",
         device=None,
         n_shards: int | None = None,
+        mesh=None,
         partition_mode: str = "hash",
         cache_size: int = 512,
         chaos=None,
@@ -52,9 +56,9 @@ class GraphSession:
         """Open a session on ``device`` (``None``: the card; it raises if
         there is none — there is no fallback to the CPU).
 
-        ``backend="auto"`` picks ``"sharded"`` for a partition of more than
-        one shard, or for a raw `Graph` with ``n_shards > 1``, else
-        ``"local"``. A raw `Graph` is partitioned here (``partition_mode``
+        ``backend="auto"`` picks ``"sharded"`` when a ``mesh`` is given, for
+        a partition of more than one shard, or for a raw `Graph` with
+        ``n_shards > 1``, else ``"local"``. A raw `Graph` is partitioned here (``partition_mode``
         ``"hash"`` or ``"range"``): into 1 shard for the local backend, into
         ``n_shards`` for the sharded one, which needs it for a raw `Graph`.
         The local backend refuses a partition of more than one shard.
@@ -62,6 +66,17 @@ class GraphSession:
         The sharded backend runs every shard on the one device, stacked
         (`repro_torch.core.dist`), so unlike the JAX package it does not
         ask for a device a shard: any S fits that the device's memory holds.
+
+        ``mesh`` — a 1-D `torch.distributed.device_mesh.DeviceMesh`
+        (`repro_torch.launch.mesh.make_host_mesh`) spanning more than one
+        process — runs the paper's engine with one shard a process
+        (`repro_torch.core.rank_dist.RankMatcher`): every rank of the mesh
+        opens its session on the same partition, whose ``n_shards`` must be
+        the mesh's size, and holds its own shard only. ``device=None`` is
+        then the card ``cuda:(rank % device_count)`` — ``cuda:0`` for every
+        rank on a one-card machine. Every rank must make the same calls
+        (``compile``, ``run``, ``stream``, ``run_batch``) in the same
+        order; each returns the same rows on every rank.
 
         ``kernels`` selects the kernel backend every dense inner step draws
         from — ``"auto"`` (the CUDA kernels on a CUDA device, the plain
@@ -80,9 +95,15 @@ class GraphSession:
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         dev = resolve_device(device)
+        ranks = mesh.size() if mesh is not None else 1
+        if ranks > 1 and device is None:
+            dev = torch.device("cuda", mesh.get_rank() % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
         kern = resolve_kernels(kernels, dev)
         if backend == "auto":
-            if isinstance(graph_or_pg, PartitionedGraph):
+            if mesh is not None:
+                backend = "sharded"
+            elif isinstance(graph_or_pg, PartitionedGraph):
                 backend = "sharded" if graph_or_pg.n_shards > 1 else "local"
             elif n_shards is not None and n_shards > 1:
                 backend = "sharded"
@@ -93,6 +114,8 @@ class GraphSession:
         else:
             if backend == "local":
                 shards = 1
+            elif n_shards is None and mesh is not None:
+                shards = ranks
             elif n_shards is None:
                 raise ValueError(
                     "the sharded backend needs n_shards= to partition a raw Graph"
@@ -100,6 +123,11 @@ class GraphSession:
             else:
                 shards = n_shards
             pg = PartitionedGraph.build(graph_or_pg, shards, mode=partition_mode)
+        if mesh is not None and pg.n_shards != ranks:
+            raise ValueError(
+                f"a partition of {pg.n_shards} shards on a mesh of {ranks} ranks: the "
+                "partition needs one shard a rank"
+            )
         cache = ExecutableCache(maxsize=cache_size)
         with facade_construction():
             if backend == "local":
@@ -110,6 +138,10 @@ class GraphSession:
                     )
                 engine = SubgraphMatcher(
                     pg, device=dev, cache=cache, kernels=kern, chaos=chaos
+                )
+            elif ranks > 1:
+                engine = RankMatcher(
+                    pg, mesh=mesh, device=dev, cache=cache, kernels=kern, chaos=chaos
                 )
             else:
                 engine = DistributedMatcher(
@@ -179,7 +211,13 @@ class GraphSession:
         through this session's `ExecutableCache`; the server interleaves
         their block joins on the one device and enforces per-query
         deadlines and budgets, so overload degrades per query, never
-        globally."""
+        globally. Not on a mesh of ranks yet (``ROADMAP.md``, Queue 1, the
+        ``torch.distributed`` path's next slice: ``serve`` on a mesh)."""
+        if getattr(self._engine, "spmd", False):
+            raise NotImplementedError(
+                "serve on a mesh of ranks is not ported yet (ROADMAP.md, Queue 1: the "
+                "torch.distributed path's next slice, 'serve on a mesh')"
+            )
         return QueryServer(self, ServerConfig(**cfg))
 
     def run_batch(

@@ -23,6 +23,11 @@ over that dimension:
   * `bool_allreduce_any` — the reference's ``pmax`` of a flag as int32,
     ``> 0``: True where any shard's is.
 
+With one shard a process (`repro_torch.core.rank_dist`), the same
+collectives move data between processes over a `torch.distributed` group:
+`repro_torch.core.rank_collectives`, which reports to this module's
+`recorder` too.
+
 Every collective reports its call to `recorder` when one is installed: the
 staticcheck pass `repro_torch.analysis.staticcheck.collective_safety`
 checks that each call takes all S shards on dim 0, that the ring's source

@@ -61,7 +61,7 @@ from repro_torch.graphstore.partition import PartitionedGraph
 from repro_torch.runtime.chaos import ShardFaultError
 from repro_torch.runtime.resilience import DegradeReason, QueryGuard, RetryPolicy, stage
 
-__all__ = ["DistributedMatcher"]
+__all__ = ["DistributedMatcher", "ShardedSteps"]
 
 
 def _schemas(plan: QueryPlan) -> tuple[join_lib.Schema, ...]:
@@ -82,10 +82,161 @@ def _table(cols: torch.Tensor, valid: torch.Tensor) -> join_lib.JoinTable:
     )
 
 
-class DistributedMatcher(CachedSteps):
-    """The multi-machine engine, its ``pg.n_shards`` shards on one device."""
+def ring_radii_for(load: np.ndarray) -> tuple[int, ...] | None:
+    """If every STwig's load set fits in a ring window (shards within
+    ring-distance r of each other), return per-STwig radii; else None.
+    Hash partitions have complete cluster graphs → None (all-gather is
+    optimal there); locality-aware partitions get bounded rings."""
+    T, S, _ = load.shape
+    radii = []
+    for t in range(T):
+        ks, js = np.nonzero(load[t])
+        d = np.minimum((ks - js) % S, (js - ks) % S)
+        r = int(d.max()) if len(d) else 0
+        if r > (S - 1) // 2:
+            return None
+        radii.append(r)
+    # beneficial only if strictly smaller than a full gather
+    return tuple(radii) if max(radii) < (S - 1) // 2 or S <= 4 else None
+
+
+def load_sets(cgi: ClusterGraphIndex, query: QueryGraph, plan: QueryPlan) -> np.ndarray:
+    """Load sets (Theorem 4) on the host: ``(T, S, S)``, entry (t, k, j)
+    true when shard k loads STwig t's results from shard j."""
+    return cgi.load_sets(query.label_pairs(), plan.head_dists)
+
+
+@dataclasses.dataclass
+class ChaosOutcome:
+    """What the fetch boundary decided: each shard's health, the fetch
+    retries spent, the dead shard whose rows are dropped, and the truncated
+    shard with its keep fraction."""
+
+    health: dict
+    fetch_retries: int = 0
+    dead: int | None = None
+    truncated: tuple[int, float] | None = None
+
+    @property
+    def fault(self) -> bool:
+        return self.dead is not None or self.truncated is not None
+
+    def apply_stats(self, stats: MatchStats) -> None:
+        stats.shard_health = dict(self.health)
+        stats.fetch_retries += self.fetch_retries
+
+
+def chaos_outcome(chaos, policy: RetryPolicy, n_shards: int) -> ChaosOutcome:
+    """Consult the chaos injector (``None``: every shard ok) at the fetch
+    boundary: the slow shard's delay is slept here, a dead shard's fetch is
+    retried with the policy's jittered backoff and then given up on, and a
+    truncated payload is reported with its keep fraction."""
+    out = ChaosOutcome(health={k: "ok" for k in range(n_shards)})
+    if chaos is None:
+        return out
+    ev = chaos.fetch_delay()
+    if ev is not None:
+        k, d = ev
+        time.sleep(d)
+        out.health[k] = "slow"
+    attempt = 0
+    while True:
+        try:
+            chaos.try_fetch()
+            if attempt > 0:
+                out.health[chaos.config.dead_shard] = "recovered"
+            break
+        except ShardFaultError as e:
+            if attempt >= policy.fetch_retries:
+                out.dead = e.shard
+                out.health[e.shard] = "dead"
+                break
+            policy.sleep(attempt, policy.fetch_backoff_s)
+            attempt += 1
+            out.fetch_retries += 1
+    tr = chaos.truncation()
+    if tr is not None:
+        k, keep = tr
+        out.truncated = (k, keep)
+        if out.health.get(k) == "ok":
+            out.health[k] = "truncated"
+    return out
+
+
+class ShardedSteps(CachedSteps):
+    """What the paper's two engines share: `DistributedMatcher` (every shard
+    stacked on one device) and `repro_torch.core.rank_dist.RankMatcher`
+    (one shard a process). Each engine gives its own `_explore`,
+    `_load_masks`, `_chaos_gate` and `_fetch`; the sequence that runs them
+    (`_setup`) and the result's bookkeeping (`_result`) are here, once."""
 
     backend = "sharded"
+    ring_radii_for = staticmethod(ring_radii_for)
+
+    def match(
+        self,
+        query: QueryGraph,
+        plan: QueryPlan | None = None,
+        *,
+        adaptive: bool = True,
+        max_retries: int = 6,
+        use_ring: bool = False,
+        guard: QueryGuard | None = None,
+        retry_policy: RetryPolicy | None = None,
+        **kw,
+    ) -> MatchResult:
+        """Adaptive matching for direct (deprecated) engine use, with the
+        local engine's escalation semantics (`SubgraphMatcher.match`);
+        ``retry_policy`` also paces the fetch-recovery retries when a chaos
+        injector is attached, and ``use_ring`` takes the ring fetch where
+        the load sets allow it."""
+        return self._adaptive_match(
+            query, plan, adaptive=adaptive, max_retries=max_retries, guard=guard,
+            retry_policy=retry_policy, engine_kw={"use_ring": use_ring}, kw=kw)
+
+    def _setup(self, query, plan, use_ring, retry_policy, stats, head_first: bool):
+        """Exploration, load sets, the join order, the fetch gate and the
+        fetch: what the one-shot and the streaming paths share. A streamed
+        query cuts its blocks on the head table, so with ``head_first`` the
+        join order starts there (disjointness across shards comes from head
+        locality). Returns (all_cols, all_valids, fetched, schemas, order,
+        overflow, fault); the stats carry the join order and, after a
+        fault, the shard-fault reason."""
+        with stage(stats, "explore"):
+            all_cols, all_valids, overflow = self._explore(plan, stats)
+        load, load_masks = self._load_masks(query, plan)
+        schemas = _schemas(plan)
+        order = tuple(join_lib.select_join_order(
+            list(schemas), stats.stwig_rows, **({"start": plan.head} if head_first else {})))
+        ring_radii = self.ring_radii_for(load) if use_ring else None
+        with stage(stats, "fetch"):
+            all_valids, fault = self._chaos_gate(
+                stats, retry_policy or RetryPolicy(), all_valids, plan.head)
+            fetched = self._fetch(all_cols, all_valids, load_masks, plan.head, ring_radii)
+        if self.chaos is not None and self.chaos.forced_overflow():
+            overflow = True
+        if fault:
+            stats.degrade_reason = DegradeReason.SHARD_FAULT.value
+        stats.join_order = [schemas[i].qnodes for i in order]
+        return all_cols, all_valids, fetched, schemas, order, overflow, fault
+
+    def _result(self, t0: float, stats: MatchStats, rows_old: np.ndarray, overflow: bool,
+                fault: bool) -> MatchResult:
+        """The one-shot path's `MatchResult`: complete unless a table
+        overflowed or a shard faulted."""
+        stats.time_s = time.perf_counter() - t0
+        stats.cache_hits = self.cache.hits
+        stats.cache_misses = self.cache.misses
+        return MatchResult(
+            rows=rows_old,
+            n_matches=int(rows_old.shape[0]),
+            complete=not (overflow or fault),
+            stats=stats,
+        )
+
+
+class DistributedMatcher(ShardedSteps):
+    """The multi-machine engine, its ``pg.n_shards`` shards on one device."""
 
     def __init__(
         self,
@@ -121,45 +272,6 @@ class DistributedMatcher(CachedSteps):
     @property
     def n_shards(self) -> int:
         return self.pg.n_shards
-
-    @staticmethod
-    def ring_radii_for(load: np.ndarray) -> tuple[int, ...] | None:
-        """If every STwig's load set fits in a ring window (shards within
-        ring-distance r of each other), return per-STwig radii; else None.
-        Hash partitions have complete cluster graphs → None (all-gather is
-        optimal there); locality-aware partitions get bounded rings."""
-        T, S, _ = load.shape
-        radii = []
-        for t in range(T):
-            ks, js = np.nonzero(load[t])
-            d = np.minimum((ks - js) % S, (js - ks) % S)
-            r = int(d.max()) if len(d) else 0
-            if r > (S - 1) // 2:
-                return None
-            radii.append(r)
-        # beneficial only if strictly smaller than a full gather
-        return tuple(radii) if max(radii) < (S - 1) // 2 or S <= 4 else None
-
-    def match(
-        self,
-        query: QueryGraph,
-        plan: QueryPlan | None = None,
-        *,
-        adaptive: bool = True,
-        max_retries: int = 6,
-        use_ring: bool = False,
-        guard: QueryGuard | None = None,
-        retry_policy: RetryPolicy | None = None,
-        **kw,
-    ) -> MatchResult:
-        """Adaptive matching for direct (deprecated) engine use, with the
-        local engine's escalation semantics (`SubgraphMatcher.match`);
-        ``retry_policy`` also paces the fetch-recovery retries when a chaos
-        injector is attached, and ``use_ring`` takes the ring fetch where
-        the load sets allow it."""
-        return self._adaptive_match(
-            query, plan, adaptive=adaptive, max_retries=max_retries, guard=guard,
-            retry_policy=retry_policy, engine_kw={"use_ring": use_ring}, kw=kw)
 
     # ------------------------------------------------------ execution phases
     def _explore(self, plan: QueryPlan, stats: MatchStats):
@@ -210,7 +322,7 @@ class DistributedMatcher(CachedSteps):
         """Load sets (Theorem 4): ``(T, S, S)`` on the host, entry (t, k, j)
         true when shard k loads STwig t's results from shard j; and the
         shard-major ``(S, T, S)`` copy on the device."""
-        load = self.cgi.load_sets(query.label_pairs(), plan.head_dists)
+        load = load_sets(self.cgi, query, plan)
         masks = torch.as_tensor(np.ascontiguousarray(np.transpose(load, (1, 0, 2))))
         return load, masks.to(self.device)
 
@@ -268,19 +380,8 @@ class DistributedMatcher(CachedSteps):
         t0 = time.perf_counter()
         plan = plan or self.plan(query, **kw)
         stats = MatchStats(backend="sharded", n_shards=self.n_shards)
-        with stage(stats, "explore"):
-            all_cols, all_valids, overflow = self._explore(plan, stats)
-        load, load_masks = self._load_masks(query, plan)
-        schemas = _schemas(plan)
-        order = tuple(join_lib.select_join_order(list(schemas), stats.stwig_rows))
-        ring_radii = self.ring_radii_for(load) if use_ring else None
-        with stage(stats, "fetch"):
-            all_valids, fault = self._chaos_gate(
-                stats, retry_policy or RetryPolicy(), all_valids, plan.head
-            )
-            fetched = self._fetch(all_cols, all_valids, load_masks, plan.head, ring_radii)
-        if self.chaos is not None and self.chaos.forced_overflow():
-            overflow = True
+        all_cols, all_valids, fetched, schemas, order, overflow, fault = self._setup(
+            query, plan, use_ring, retry_policy, stats, head_first=False)
         with stage(stats, "join"):
             accs = [
                 self._join_shard(k, all_cols, all_valids, fetched, schemas, order, plan)
@@ -292,18 +393,7 @@ class DistributedMatcher(CachedSteps):
             overflow |= bool(torch.stack([a.overflow for a, _ in accs]).any())
         with stage(stats, "materialize"):
             rows_old = self._union_rows(cols, valid, schema, plan.max_matches)
-        stats.time_s = time.perf_counter() - t0
-        stats.join_order = [schemas[i].qnodes for i in order]
-        stats.cache_hits = self.cache.hits
-        stats.cache_misses = self.cache.misses
-        if fault:
-            stats.degrade_reason = DegradeReason.SHARD_FAULT.value
-        return MatchResult(
-            rows=rows_old,
-            n_matches=int(rows_old.shape[0]),
-            complete=not (overflow or fault),
-            stats=stats,
-        )
+        return self._result(t0, stats, rows_old, overflow, fault)
 
     # -------------------------------------------------- streaming interface
     def _stream_setup(
@@ -321,26 +411,8 @@ class DistributedMatcher(CachedSteps):
         shard-fault reason and `OpenStream.blocks` marks pages ``complete=False``."""
         plan = plan or self.plan(query, **kw)
         stats = MatchStats(backend="sharded", n_shards=self.n_shards)
-        with stage(stats, "explore"):
-            all_cols, all_valids, overflow = self._explore(plan, stats)
-        if self.chaos is not None and self.chaos.forced_overflow():
-            overflow = True
-        load, load_masks = self._load_masks(query, plan)
-        schemas = _schemas(plan)
-        # blocks are cut on the head table, so the join order must start
-        # there (disjointness across shards comes from head locality)
-        order = tuple(
-            join_lib.select_join_order(list(schemas), stats.stwig_rows, start=plan.head)
-        )
-        ring_radii = self.ring_radii_for(load) if use_ring else None
-        with stage(stats, "fetch"):
-            all_valids, fault = self._chaos_gate(
-                stats, retry_policy or RetryPolicy(), all_valids, plan.head
-            )
-            fetched = self._fetch(all_cols, all_valids, load_masks, plan.head, ring_radii)
-        if fault:
-            stats.degrade_reason = DegradeReason.SHARD_FAULT.value
-        stats.join_order = [schemas[i].qnodes for i in order]
+        all_cols, all_valids, fetched, schemas, order, overflow, _ = self._setup(
+            query, plan, use_ring, retry_policy, stats, head_first=True)
         head_valid = all_valids[plan.head]
         S, cap = head_valid.shape
         # one host copy of the head validity: blocks where no shard has a
@@ -398,46 +470,18 @@ class DistributedMatcher(CachedSteps):
         self, stats: MatchStats, policy: RetryPolicy, all_valids, head_pos: int
     ):
         """The host-side fetch boundary: consult the chaos injector (when
-        attached), retry dead fetches with the policy's jittered backoff,
-        and degrade to the surviving shards' rows by masking the faulty
-        shard's stacked validity. Returns (all_valids, faulted). Runs
-        before the fetch: a memory cloud loses a shard at fetch time."""
-        stats.shard_health = {k: "ok" for k in range(self.n_shards)}
-        chaos = self.chaos
-        if chaos is None:
-            return all_valids, False
-        fault = False
-        ev = chaos.fetch_delay()
-        if ev is not None:
-            k, d = ev
-            time.sleep(d)
-            stats.shard_health[k] = "slow"
-        attempt = 0
-        while True:
-            try:
-                chaos.try_fetch()
-                if attempt > 0:
-                    stats.shard_health[chaos.config.dead_shard] = "recovered"
-                break
-            except ShardFaultError as e:
-                if attempt >= policy.fetch_retries:
-                    all_valids = self._mask_shard(all_valids, e.shard)
-                    stats.shard_health[e.shard] = "dead"
-                    fault = True
-                    break
-                policy.sleep(attempt, policy.fetch_backoff_s)
-                attempt += 1
-                stats.fetch_retries += 1
-        tr = chaos.truncation()
-        if tr is not None:
-            k, keep = tr
-            all_valids = self._mask_shard(
-                all_valids, k, head_pos=head_pos, keep_frac=keep
-            )
-            if stats.shard_health.get(k) == "ok":
-                stats.shard_health[k] = "truncated"
-            fault = True
-        return all_valids, fault
+        attached, `chaos_outcome`) and degrade to the surviving shards' rows
+        by masking the faulty shard's stacked validity. Returns
+        (all_valids, faulted). Runs before the fetch: a memory cloud loses a
+        shard at fetch time."""
+        out = chaos_outcome(self.chaos, policy, self.n_shards)
+        out.apply_stats(stats)
+        if out.dead is not None:
+            all_valids = self._mask_shard(all_valids, out.dead)
+        if out.truncated is not None:
+            k, keep = out.truncated
+            all_valids = self._mask_shard(all_valids, k, head_pos=head_pos, keep_frac=keep)
+        return all_valids, out.fault
 
     @staticmethod
     def _mask_shard(

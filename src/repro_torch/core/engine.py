@@ -187,6 +187,11 @@ class CachedSteps:
         if max_matches and keep.shape[0] > max_matches:
             keep = keep[:max_matches]
         rows_new = cols[torch.as_tensor(keep, device=cols.device)].cpu().numpy()
+        return self._old_ids(rows_new, schema)
+
+    def _old_ids(self, rows_new: np.ndarray, schema: join_lib.Schema) -> np.ndarray:
+        """Host rows of new ids in ``schema``'s column order → ORIGINAL ids
+        in query-node order; the ghost id ``n_total`` maps to -1."""
         perm = np.argsort(np.asarray(schema.qnodes))
         rows_new = rows_new[:, perm]
         rows_old = np.where(

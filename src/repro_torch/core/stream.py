@@ -126,6 +126,10 @@ def open_stream(
     armed earlier keeps its original epoch.
     """
     if guard is not None:
+        if guard.deadline_s is not None and getattr(engine, "spmd", False):
+            # a deadline could end the stream on one rank only, leaving the
+            # others waiting in the next block's gather
+            raise ValueError("a deadline may trip on one rank only: the rank engine refuses it")
         guard.start()
     state = engine._stream_setup(query, plan, **engine_kw)
     stats = state.stats

@@ -17,6 +17,8 @@ invalid and whose binding bits are never set).
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 
@@ -178,6 +180,33 @@ class PartitionedGraph:
         for name in fields:
             v = arrays[name]
             kw[name] = np.array(v) if isinstance(v, np.ndarray) else int(v)
+        return PartitionedGraph(**kw)
+
+    def save(self, path) -> None:
+        """Write every field into the directory ``path``: one ``.npy`` a
+        array, the integers in ``scalars.json``. `load` maps them back."""
+        path = pathlib.Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        scalars = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, np.ndarray):
+                np.save(path / f"{f.name}.npy", v)
+            else:
+                scalars[f.name] = int(v)
+        (path / "scalars.json").write_text(json.dumps(scalars))
+
+    @staticmethod
+    def load(path) -> "PartitionedGraph":
+        """The partition `save` wrote to ``path``, its arrays memory-mapped
+        copy-on-write: a process that opens one shard of it reads that
+        shard's pages only, and processes share the replicated arrays'
+        pages through the page cache."""
+        path = pathlib.Path(path)
+        kw = json.loads((path / "scalars.json").read_text())
+        for f in dataclasses.fields(PartitionedGraph):
+            if f.name not in kw:
+                kw[f.name] = np.load(path / f"{f.name}.npy", mmap_mode="c")
         return PartitionedGraph(**kw)
 
     # --------------------------------------------------------------- helpers

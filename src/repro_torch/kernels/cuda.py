@@ -44,6 +44,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# sources this process compiled (nvcc runs it started): a rank of a mesh
+# only loads the libraries its parent built, and reports this as 0
+sources_built = 0
 _LOAD_LOCK = threading.Lock()  # held while a library is built, loaded or bound
 
 
@@ -79,6 +82,8 @@ def build(*, ptxas_verbose: bool = False) -> dict[str, str]:
             tmp,
             out,
         )
+    global sources_built
+    sources_built += len(running)
     messages = {}
     failed = []
     for name, (proc, tmp, out) in running.items():

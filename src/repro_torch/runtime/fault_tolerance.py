@@ -6,8 +6,9 @@
     simulates preemptions and the loop resumes losslessly (bitwise-equal
     state to an uninterrupted run, since steps are deterministic).
   * **elastic restore** — `elastic_restore` restores the latest checkpoint
-    onto a device; onto another mesh it waits for the port's
-    ``torch.distributed`` path.
+    onto a device; onto another mesh it waits for the model sharding of
+    the port's ``torch.distributed`` path (``ROADMAP.md``, Queue 1: its
+    next slice).
   * **straggler detection** — the supervisor keeps an EWMA of the step
     time and flags a step slower than ``straggler_factor`` × it
     (`straggler_update`), so a launcher can act between checkpoints.

@@ -968,3 +968,30 @@ def test_train_step_on_card_matches_the_cpu(dev, family):
         # differ between the two sides, so those few elements may be 2 lr apart
         assert diff.max() <= 2 * opt.lr, n
         assert (diff > 1e-2 * opt.lr).float().mean() <= 1e-3, n
+
+
+def test_gloo_takes_cuda_tensors_where_the_staging_rule_leaves_them(dev):
+    """The staging rule of `repro_torch.core.rank_collectives` on this
+    machine's torch: two gloo ranks on ``cuda:0`` reduce and gather CUDA
+    tensors as they are, and a point-to-point exchange of words with bit 31
+    set round-trips through pinned host memory, every bit kept."""
+    import rank_fns
+    from repro_torch.core.rank_collectives import GLOO_HOST_OPS
+    from repro_torch.launch import spawn_ranks
+
+    res = spawn_ranks(rank_fns.gloo_cuda_rank, 2, timeout=300)
+    assert GLOO_HOST_OPS == {"p2p"}
+    want_gather = np.stack([np.full((3, 2), r - 2**31, np.int32) for r in range(2)])
+    for rank, r in enumerate(res):
+        np.testing.assert_array_equal(r["sum"], [3, -3])
+        np.testing.assert_array_equal(r["max"], [2, -1])
+        np.testing.assert_array_equal(r["gather"], want_gather)
+        assert r["staged_p2p"]
+        peer = 1 - rank
+        (wd, wt, words), (md, mt, mask) = r["exchange"]
+        assert (wd, wt, md, mt) == ("cuda", torch.int32, "cuda", torch.bool)
+        np.testing.assert_array_equal(
+            words, np.array([-(2**31), -(2**31) + peer, 2**31 - 1], np.int32))
+        np.testing.assert_array_equal(mask, [peer == 0, peer == 1, True])
+        # each operand out and each result back: (3 words of 4 + 3 bools) · 2
+        assert r["staged"] == {"probe": 2 * (12 + 3)}
