@@ -311,6 +311,25 @@ result lines are printed only when every phase passed):
      of its arch's ``skipped_shapes``; then each of `DRYRUN_CARD_CELLS` run
      once on the card from its cell's shapes, its ``max_memory_allocated``
      within `DRYRUN_BAND` of the priced peak where it is at least 256 MB;
+  tp — gemma-2b at its published widths (bf16, seed 0) on a (data=2,
+     model=2) mesh of 4 gloo ranks sharing ``cuda:0`` (`TP`), served
+     through ``make_serve_fns``: the prefill of `LM_SERVE`'s 2 × 8,192
+     tokens, then 32 decode steps under the decode rules. Held: each
+     rank's launches (``flash_attention_tc`` 18 a prefill, the FMA route
+     0), its parameter bytes as ``param_pspecs`` imply; on the one-card
+     model's shared inputs, each prefill layer, each layer's attention
+     (before ``wo``) and each first-decode-step layer within 2e-2 of each
+     row's max; ``flash_attention_tc`` on every rank's ``(batch, heads)``
+     block of each layer's one-card inputs within 2e-2 of
+     ``mha_reference``; the fp32 2-layer model (TF32 off) within 1e-4 of
+     the one-card layer in the mesh's GEMM blocks with the plain attention
+     (`blocked_layer`), and within 1.5× that layer's distance of the
+     one-card layer as served;
+  dryrun-mesh — ``python -m repro_torch.extras.dryrun --mesh single-pod``
+     and ``multi-pod`` ``--all`` in subprocesses: a record under ``--out``
+     for every cell, the 12 dense-LM serving cells priced, every other
+     refused naming its ``ROADMAP.md`` item, and each priced cell's
+     per-chip parameter bytes equal to ``schema.rank_bytes``;
 
 Before the last line it prints the fourteen kernels as one JSON object, then
 the ``nvidia-smi`` name/power-limit line; the last line is
@@ -320,6 +339,7 @@ package.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -375,6 +395,11 @@ CHAOS_FAULTS = {
 RANKS = 16
 # [ranks-small]: compressed_psum's gradients (4 ranks) and gpipe's 2 stages
 RANKS_SMALL = dict(ranks=4, grad=(64, 1000), stages=2, micro=4, mb=8, d=64)
+# [tp]: gemma-2b at its published widths served on a (data=2, model=2) mesh of
+# 4 gloo ranks sharing cuda:0 ([lm]'s 2 prompts of 8,192 tokens, one a data
+# rank, then [lm]'s 32 decode steps); fp32 at full width cut to 2 layers on
+# 2 x 2,048 tokens
+TP = dict(mesh={"data": 2, "model": 2}, fp32_layers=2, fp32_seq=2048)
 # gemma-2b trained at its published widths and full depth: 4 steps of 2 x 2,048
 # lm_batch tokens; xDeepFM at its train_batch (65,536, the JAX package's
 # extras/shapes.py); GatedGCN on [gnn]'s minibatch_lg batch
@@ -3008,6 +3033,514 @@ def phase_lm(dev, smi: str) -> list[dict]:
     return [row, tf32_row, fma_row]
 
 
+# ------------------------------------------------------------------ [tp]
+def layer_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| over its row's max|want| (rows: the last
+    axis); inf on a shape mismatch or a non-finite value."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        return float("inf")
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return ((got - want).abs() / scale).max().item()
+
+
+def collective_counter():
+    """A dispatch mode counting the functional collectives a rank runs and
+    the bytes of their results, by kind (DTensor's ops pass through to its
+    own dispatch, whose collectives come back here)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.analysis.staticcheck import costmodel
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.count, self.nbytes = {}, {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "_c10d_functional":
+                kind = costmodel.FUNCTIONAL_KIND.get(costmodel.base_name(str(func)))
+                if kind is not None:
+                    self.count[kind] = self.count.get(kind, 0) + 1
+                    self.nbytes[kind] = self.nbytes.get(kind, 0) + out.numel() * out.element_size()
+            return out
+
+    return Counter()
+
+
+def tp_rank(rank: int, path: str, t_spawn: float) -> dict:
+    """[tp] in one rank process: gemma-2b drawn from seed 0 onto the (data=2,
+    model=2) mesh (`make_mesh`: device type "cuda" over the gloo world),
+    served through ``make_serve_fns`` — the prefill counted and timed, its
+    layers run again one at a time on the parent's one-card inputs, the
+    cache moved once to the decode placements, [lm]'s decode steps timed,
+    the first decode step's layers on the parent's inputs — then the fp32
+    2-layer model's prefill and layers. Returns measurements and the
+    largest error ratios; the parent holds them."""
+    started = time.time() - t_spawn
+    import dataclasses
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import gemma_2b
+    from repro_torch.core import rank_collectives as rc
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import axis_rules, make_mesh, make_rules
+    from repro_torch.launch.sharding import shard_input
+    from repro_torch.models import schema
+    from repro_torch.models.transformer import (
+        CACHE_AXES, DecodeCache, Transformer, grow_cache, lm_schema)
+    from repro_torch.train.step import make_serve_fns
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(pathlib.Path(path) / "ref.pt", mmap=True)
+    mesh = make_mesh(TP["mesh"], "cuda")
+    cfg = gemma_2b.CONFIG
+    B, S, T = LM_SERVE["batch"], LM_SERVE["seq"], LM_SERVE["decode"]
+    rules = make_rules(cfg, "prefill", mesh)
+    decode_rules = make_rules(cfg, "decode", mesh)
+    out = {"started_s": started}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0),
+                        mesh=mesh, rules=rules)
+    torch.cuda.synchronize()
+    out["draw_s"] = time.perf_counter() - t0
+    out["param_bytes"] = sum(p.to_local().numel() * p.element_size() for p in model.parameters())
+    out["param_bytes_want"] = schema.rank_bytes(lm_schema(cfg), rules, TP["mesh"])
+    fns = make_serve_fns(cfg, model)
+    tokens = ref["tokens"]
+
+    # ---- the prefill, counted: launches, collectives --------------------
+    cuda.reset_launch_counts()
+    rc.reset_staged_bytes()
+    counter = collective_counter()
+    with CommDebugMode() as comm, counter:
+        logits, cache = fns["prefill"](tokens)
+    torch.cuda.synchronize()
+    out["prefill_routes"] = moved_by_route()
+    out["prefill_comm"] = {str(k): v for k, v in comm.get_comm_counts().items()}
+    out["prefill_coll"] = (counter.count, counter.nbytes)
+    out["prefill_staged"] = dict(rc.staged_bytes)
+    out["logits"] = (tuple(logits.shape), str(logits.dtype), type(logits).__name__,
+                     tuple(logits.to_local().shape),
+                     bool(torch.isfinite(logits.to_local()).all()))
+    t0 = time.perf_counter()
+    logits, cache = fns["prefill"](tokens)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+
+    # ---- each layer on the parent's one-card input -----------------------
+    ratios = []
+    with torch.no_grad(), axis_rules(mesh, rules), model.scope():
+        positions = torch.arange(S, device=dev).expand(B, S)
+        for l in range(cfg.n_layers):
+            x = shard_input(ref["xs"][l].to(dev), "batch", "seq", "embed")
+            y = model.layer(l, x, positions)[0].full_tensor()
+            ratios.append(layer_ratio(y, ref["xs"][l + 1].to(dev)))
+            del x, y
+    out["prefill_layers"] = ratios
+
+    # ---- each layer's attention (before wo) on the parent's q, k, v --------
+    ratios = []
+    kw = dict(window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    with torch.no_grad(), axis_rules(mesh, rules), model.scope():
+        for q, k, v in ref["attn"]:
+            q, k, v = q.to(dev), k.to(dev), v.to(dev)
+            o = model.kernels.flash_attention(
+                shard_input(q, "batch", "seq", "heads", None),
+                *(shard_input(t, "batch", "seq", "kv_heads", None) for t in (k, v)), **kw)
+            ratios.append(layer_ratio(o.full_tensor(), model.kernels.flash_attention(q, k, v, **kw)))
+            del q, k, v, o
+    out["attention"] = ratios
+
+    # ---- decode: the cache moved once, then T steps ----------------------
+    with axis_rules(mesh, decode_rules):
+        cache = grow_cache(cache, S + T)
+    out["cache_placements"] = str(tuple(cache.data[0].placements))
+    tok = logits[:, -1:].full_tensor().argmax(-1)
+    del logits
+    cuda.reset_launch_counts()
+    counter = collective_counter()
+    with CommDebugMode() as comm, counter:
+        step_logits, cache = fns["decode"](cache, tok, S)
+    torch.cuda.synchronize()
+    out["decode_comm"] = {str(k): v for k, v in comm.get_comm_counts().items()}
+    out["decode_coll"] = (counter.count, counter.nbytes)
+    tok = step_logits.full_tensor().argmax(-1)
+    times = []
+    for i in range(1, T):
+        t0 = time.perf_counter()
+        step_logits, cache = fns["decode"](cache, tok, S + i)
+        tok = step_logits.full_tensor().argmax(-1)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["decode_routes"] = moved_by_route()
+    out["decode_ms"] = times
+    out["decode_logits"] = (tuple(step_logits.shape), bool(torch.isfinite(
+        step_logits.to_local()).all()))
+    del cache, step_logits
+
+    # ---- the first decode step's layers on the parent's inputs ------------
+    ratios = []
+    with torch.no_grad(), axis_rules(mesh, decode_rules):
+        shared = DecodeCache(tuple(shard_input(c.to(dev), *CACHE_AXES) for c in ref["cache"]),
+                             "gqa", S + T, False)
+        for l in range(cfg.n_layers):
+            x = shard_input(ref["xd"][l].to(dev), "batch", None, "embed")
+            y = model.decode_layer(l, x, shared, S).full_tensor()
+            ratios.append(layer_ratio(y, ref["xd"][l + 1].to(dev)))
+    out["decode_layers"] = ratios
+    del shared, model, fns
+    torch.cuda.empty_cache()
+
+    # ---- fp32: full width, 2 layers, TF32 off ----------------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=TP["fp32_layers"])
+    rules32 = make_rules(cfg32, "prefill", mesh)
+    model = Transformer(cfg32, device=dev, generator=torch.Generator(device=dev).manual_seed(0),
+                        mesh=mesh, rules=rules32)
+    tokens32 = tokens[:, :TP["fp32_seq"]]
+    cuda.reset_launch_counts()
+    make_serve_fns(cfg32, model)["prefill"](tokens32)
+    torch.cuda.synchronize()
+    out["fp32_routes"] = moved_by_route()
+    ratios, served = [], []
+    with torch.no_grad(), axis_rules(mesh, rules32), model.scope():
+        positions = torch.arange(tokens32.shape[1], device=dev).expand(*tokens32.shape)
+        for l in range(cfg32.n_layers):
+            x = shard_input(ref["xs32"][l].to(dev), "batch", "seq", "embed")
+            y = model.layer(l, x, positions)[0].full_tensor()
+            ratios.append(layer_ratio(y, ref["ys32"][l].to(dev)))
+            served.append(layer_ratio(y, ref["xs32"][l + 1].to(dev)))
+    out["fp32_layers"] = ratios
+    out["fp32_vs_served"] = served
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["staged"] = dict(rc.staged_bytes)
+    out["sources_built"] = cuda.sources_built
+    return out
+
+
+def blocked_layer(model, l: int, x: torch.Tensor, positions: torch.Tensor, mesh: dict):
+    """Layer ``l`` of the one-card ``model`` on ``x`` computed in the
+    blocks a rank of the ``mesh`` ({"data": d, "model": m}) computes: the
+    batch in ``d`` row blocks, each column-parallel GEMM (q, the gate and
+    up projections) in ``m`` column blocks, the plain attention
+    (``mha_reference``) on each block's heads (with every kv head: gemma's
+    one), each row-parallel GEMM (the attention's and the FFN's output
+    projections) as ``m`` partial sums added. fp32 GEMMs round by their
+    shapes (cuBLAS picks its algorithm by them): this is the one-card
+    function in the mesh's GEMM rounding, with the plain version in place
+    of the attention kernel."""
+    from repro_torch.extras.flash_attention.ref import mha_reference
+    from repro_torch.models.layers import apply_rope, rms_norm
+
+    import torch.nn.functional as F
+
+    cfg, n_d, n_m = model.cfg, mesh["data"], mesh["model"]
+    B, S, D = x.shape
+    N, H = cfg.n_heads, cfg.d_head
+    p, f = model.attn, model.ffn_dense
+    wq, wk, wv = (p[w][l].reshape(D, -1) for w in ("wq", "wk", "wv"))
+    wo = p["wo"][l].reshape(-1, D)
+    cq, cf = N * H // n_m, cfg.d_ff // n_m
+    outs = []
+    for rows in x.split(B // n_d):
+        b = rows.shape[0]
+        h = rms_norm(rows, model.norm_attn[l], cfg.norm_eps).reshape(b * S, D)
+        k = apply_rope((h @ wk).view(b, S, cfg.n_kv_heads, H), positions[:b], cfg.rope_theta)
+        v = (h @ wv).view(b, S, cfg.n_kv_heads, H)
+        a = 0
+        for m in range(n_m):
+            q = apply_rope((h @ wq[:, m * cq:(m + 1) * cq].contiguous()).view(b, S, N // n_m, H),
+                           positions[:b], cfg.rope_theta)
+            o = mha_reference(q, k, v, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+            a = a + o.reshape(b * S, cq) @ wo[m * cq:(m + 1) * cq]
+        x1 = rows + a.view(b, S, D)
+        h = rms_norm(x1, model.norm_ffn[l], cfg.norm_eps).reshape(b * S, D)
+        y = 0
+        for m in range(n_m):
+            cols = slice(m * cf, (m + 1) * cf)
+            g = h @ f["wi_gate"][l][:, cols].contiguous()
+            u = h @ f["wi_up"][l][:, cols].contiguous()
+            y = y + (F.gelu(g, approximate="tanh") * u) @ f["wo"][l][cols]
+        outs.append(x1 + y.view(b, S, D))
+    return torch.cat(outs)
+
+
+def tp_reference(dev, path: pathlib.Path) -> dict:
+    """[tp]'s shared inputs, from the one-card model (seed 0, CUDA kernels)
+    saved to ``path/ref.pt``: the prefill's stream layer by layer (each
+    layer's input; the next is its output), each layer's attention inputs
+    ``(q, k, v)``, the prefill's cache grown by [lm]'s decode steps, the
+    first decode step's stream, and the fp32 2-layer model's stream and
+    its layers in the mesh's blocks (`blocked_layer`). Holds
+    ``flash_attention_tc`` to the plain version on every rank's ``(batch,
+    heads)`` block of every layer's attention inputs (2e-2 of each row's
+    max, [lm]'s bf16 tolerance); returns the largest ratio beside the
+    reference."""
+    import dataclasses
+
+    from repro_torch.configs import gemma_2b
+    from repro_torch.core.backend import get_kernels
+    from repro_torch.extras.flash_attention.ref import mha_reference
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.models.transformer import Transformer, grow_cache
+    from repro_torch.train.step import make_serve_fns
+
+    cfg = gemma_2b.CONFIG
+    B, S, T = LM_SERVE["batch"], LM_SERVE["seq"], LM_SERVE["decode"]
+    tokens = torch.from_numpy(lm_batch(cfg, B, S, seed=0, step=0)["tokens"])
+
+    def stream(model, toks):
+        with torch.inference_mode():
+            x = model.embed_tokens(toks.to(dev))
+            positions = torch.arange(toks.shape[1], device=dev).expand(*toks.shape)
+            xs = [x.cpu()]
+            for l in range(model.cfg.n_layers):
+                x = model.layer(l, x, positions)[0]
+                xs.append(x.cpu())
+        return xs
+
+    model = Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    rec = recording_flash_attention()
+    model.set_kernels(rec)
+    ref = {"tokens": tokens, "xs": stream(model, tokens)}
+    model.set_kernels("cuda")
+    # the kernel at the shapes a rank gives it: batch 1, its model rank's heads
+    cuda_k, n_m = get_kernels("cuda"), TP["mesh"]["model"]
+    block_ratios = []
+    for l, (q, k, v, kw) in enumerate(rec.args):
+        cq = q.shape[2] // n_m
+        for b in range(q.shape[0]):
+            for m in range(n_m):
+                qb = q[b:b + 1, :, m * cq:(m + 1) * cq].contiguous()
+                kb, vb = k[b:b + 1].contiguous(), v[b:b + 1].contiguous()
+                got = routed(lambda: cuda_k.flash_attention(qb, kb, vb, **kw), "tc",
+                             f"[tp] layer {l} attention, block ({b}, {m})")
+                want = mha_reference(qb, kb, vb, **kw).float()
+                block_ratios.append(scaled_err(
+                    got.float(), want, own_row_scale(want),
+                    f"[tp] layer {l} attention on the block (batch {b}, heads {m * cq}-"
+                    f"{(m + 1) * cq - 1}) q {tuple(qb.shape)} k/v {tuple(kb.shape)}",
+                    tol=2e-2)[0])
+                del got, want
+    ref["attn"] = [tuple(t.cpu() for t in a[:3]) for a in rec.args]
+    ref["block_shapes"] = (tuple(qb.shape), tuple(kb.shape))
+    del rec, q, k, v, qb, kb, vb
+    logits, cache = make_serve_fns(cfg, model)["prefill"](tokens)
+    cache = grow_cache(cache, S + T)
+    ref["cache"] = [c.cpu() for c in cache.data]
+    with torch.inference_mode():
+        x = model.embed_tokens(logits[:, -1:].argmax(-1))
+        xd = [x.cpu()]
+        for l in range(cfg.n_layers):
+            x = model.decode_layer(l, x, cache, S)
+            xd.append(x.cpu())
+    ref["xd"] = xd
+    del model, logits, cache
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=TP["fp32_layers"])
+    model = Transformer(cfg32, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks32 = tokens[:, :TP["fp32_seq"]].to(dev)
+    ref["xs32"] = stream(model, toks32)
+    with torch.inference_mode():
+        positions = torch.arange(toks32.shape[1], device=dev).expand(*toks32.shape)
+        ref["ys32"] = [blocked_layer(model, l, ref["xs32"][l].to(dev), positions, TP["mesh"]).cpu()
+                       for l in range(cfg32.n_layers)]
+    ref["blocked_vs_served"] = [layer_ratio(y, x) for y, x in zip(ref["ys32"], ref["xs32"][1:])]
+    del model
+    torch.cuda.empty_cache()
+    torch.save(ref, path / "ref.pt")
+    ref["block_ratio"] = max(block_ratios)
+    return ref
+
+
+def phase_tp(dev, smi: str) -> None:
+    """[tp]: gemma-2b at its published widths served on a mesh of 4 gloo
+    ranks sharing ``cuda:0`` (`tp_rank`), held layer by layer to the
+    one-card model on shared inputs (`tp_reference`)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import gemma_2b
+    from repro_torch.extras.flash_attention import flash_attention as fa
+    from repro_torch.launch import spawn_ranks
+
+    cfg = gemma_2b.CONFIG
+    n = TP["mesh"]["data"] * TP["mesh"]["model"]
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = pathlib.Path(tempfile.mkdtemp(prefix="tp-", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        ref = tp_reference(dev, path)
+        blocked_vs_served, block_ratio, block_shapes = (
+            ref["blocked_vs_served"], ref["block_ratio"], ref["block_shapes"])
+        del ref
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = spawn_ranks(tp_rank, n, str(path), time.time(), timeout=900)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    want_routes = {r: cfg.n_layers if r == "tc" else 0 for r in fa.ROUTES}
+    for k, r in enumerate(res):
+        if r["sources_built"]:
+            fail(f"[tp] rank {k} built {r['sources_built']} kernel sources")
+        if r["prefill_routes"] != want_routes:
+            fail(f"[tp] rank {k}: the bf16 prefill launched the routes {r['prefill_routes']}, "
+                 f"not the tensor-core route {cfg.n_layers} times and the others 0")
+        if any(r["decode_routes"].values()):
+            fail(f"[tp] rank {k}: decode launched flash_attention {r['decode_routes']}")
+        want32 = {rt: TP["fp32_layers"] if rt == "tf32" else 0 for rt in fa.ROUTES}
+        if r["fp32_routes"] != want32:
+            fail(f"[tp] rank {k}: the fp32 prefill launched the routes {r['fp32_routes']}")
+        if r["param_bytes"] != r["param_bytes_want"]:
+            fail(f"[tp] rank {k}: {r['param_bytes']} parameter bytes, param_pspecs imply "
+                 f"{r['param_bytes_want']}")
+        shape, dtype, kind, local, finite = r["logits"]
+        if (shape, dtype, kind, finite) != ((LM_SERVE["batch"], LM_SERVE["seq"], cfg.vocab_size),
+                                            "torch.bfloat16", "DTensor", True):
+            fail(f"[tp] rank {k}: prefill logits {r['logits']}")
+        if r["decode_logits"] != ((LM_SERVE["batch"], 1, cfg.vocab_size), True):
+            fail(f"[tp] rank {k}: decode logits {r['decode_logits']}")
+        for what, ratios, tol in (("prefill", r["prefill_layers"], 2e-2),
+                                  ("prefill attention (before wo)", r["attention"], 2e-2),
+                                  ("first decode step", r["decode_layers"], 2e-2),
+                                  ("fp32 prefill", r["fp32_layers"], 1e-4)):
+            if len(ratios) != (TP["fp32_layers"] if what.startswith("fp32") else cfg.n_layers) \
+                    or max(ratios) > tol:
+                fail(f"[tp] rank {k}: {what} layers on shared inputs, largest |mesh - one card| "
+                     f"/ the row's max|one card| by layer {ratios} (tolerance {tol:g})")
+        # the served one-card fp32 layer differs from the mesh's by the GEMMs'
+        # rounding alone: no more than 1.5x the blocked one-card layer does
+        if len(r["fp32_vs_served"]) != TP["fp32_layers"] or any(
+                got > 1.5 * want for got, want in zip(r["fp32_vs_served"], blocked_vs_served)):
+            fail(f"[tp] rank {k}: fp32 layers, |mesh - one card as served| / the row's max "
+                 f"{r['fp32_vs_served']}, above 1.5x the blocked one-card layer's "
+                 f"{blocked_vs_served}")
+    r0 = res[0]
+    log(f"[tp] gemma-2b ({cfg.n_layers} layers, bf16) on a {TP['mesh']} mesh of {n} gloo ranks "
+        f"sharing cuda:0 (make_mesh: device type cuda; heads, MLP and vocab over model, the "
+        f"batch and the FSDP dims over data); one-card reference saved in {t_ref:.2f} s; ranks "
+        f"started, served and checked in {t_ranks:.2f} s, a rank's function entered "
+        f"{min(r['started_s'] for r in res):.2f}-{max(r['started_s'] for r in res):.2f} s after "
+        f"the spawn, its parameters drawn leaf by leaf in "
+        f"{min(r['draw_s'] for r in res):.2f}-{max(r['draw_s'] for r in res):.2f} s ({smi})")
+    log(f"[tp] each rank holds {r0['param_bytes']} parameter bytes "
+        f"({r0['param_bytes'] / 1e9:.3f} GB), as param_pspecs imply; each rank's prefill "
+        f"launched the routes {r0['prefill_routes']}, the fp32 model's {r0['fp32_routes']}, "
+        f"decode {r0['decode_routes']}; no rank built a kernel library")
+    log(f"[tp] prefill {LM_SERVE['batch']} x {LM_SERVE['seq']} (one prompt a data rank), the "
+        f"second call: {[round(r['prefill_ms'], 2) for r in res]} ms by rank; logits "
+        f"{r0['logits'][0]} as DTensors, {r0['logits'][3]} a rank; decode steps "
+        f"2-{LM_SERVE['decode']} "
+        f"(cache {r0['cache_placements']}): median "
+        f"{[round(statistics.median(r['decode_ms']), 2) for r in res]} ms a step by rank")
+    log(f"[tp] largest |mesh - one card| / the row's max|one card|, layer by layer on shared "
+        f"inputs (rank 0): prefill {[f'{x:.2e}' for x in r0['prefill_layers']]}; first decode "
+        f"step {[f'{x:.2e}' for x in r0['decode_layers']]}; fp32 "
+        f"{[f'{x:.2e}' for x in r0['fp32_layers']]}; every rank within 2e-2 (bf16) and 1e-4 "
+        f"(fp32): largest {max(max(r['prefill_layers'] + r['decode_layers']) for r in res):.3e} "
+        f"and {max(max(r['fp32_layers']) for r in res):.3e}")
+    log(f"[tp] each prefill layer's attention (before wo) on the one-card q, k, v, the mesh's "
+        f"(each rank's kernel on its block) against the one-card kernel's, within 2e-2 of each "
+        f"row's max: largest by layer (rank 0) {[f'{x:.2e}' for x in r0['attention']]}, every "
+        f"rank {max(max(r['attention']) for r in res):.3e}; flash_attention_tc on every rank's "
+        f"block, q {block_shapes[0]} k/v {block_shapes[1]}, of each layer's one-card inputs, "
+        f"against mha_reference: within 2e-2 of each row's max (largest ratio {block_ratio:.3e})")
+    log(f"[tp] fp32: each layer is held at 1e-4 to the one-card layer in the mesh's GEMM blocks "
+        f"with the plain attention (blocked_layer); against the one-card layer as served the "
+        f"mesh's are {[f'{x:.2e}' for x in r0['fp32_vs_served']]} (rank 0; held to 1.5x the "
+        f"blocked layer's distance from it, {[f'{x:.2e}' for x in blocked_vs_served]}): fp32 "
+        f"GEMMs round by their shapes, and this init's attention logits (~720) amplify it")
+    for what in ("prefill", "decode"):
+        count, nbytes = r0[f"{what}_coll"]
+        log(f"[tp] rank 0's collectives in one {what if what == 'prefill' else 'decode step'} "
+            f"(CommDebugMode {r0[f'{what}_comm']}): calls by kind {count}, result bytes by kind "
+            f"{nbytes}")
+    log(f"[tp] bytes staged through pinned host memory by rank 0 (the gloo all-gather rule), "
+        f"by collective: prefill {r0['prefill_staged']}, whole phase {r0['staged']}")
+    log(f"[tp] max_memory_allocated a rank (GB): {[round(r['peak'] / 1e9, 3) for r in res]}")
+    log(f"[tp] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------ [dryrun-mesh]
+def phase_dryrun_mesh(smi: str) -> None:
+    """[dryrun-mesh]: the dense-LM serving cells priced a chip on the
+    reference's single-pod and multi-pod meshes, each mesh in a process of
+    its own (``python -m repro_torch.extras.dryrun --mesh ... --all``: a
+    world of fake ranks; each cell's record read from ``--out``); every
+    cell's per-rank parameter bytes held to
+    the sum of its leaves' local chunks under the port's ``spec_for``."""
+    import shutil
+
+    from repro_torch.configs import get
+    from repro_torch.extras.dryrun import MESH_CELLS, MESHES, all_cell_ids
+    from repro_torch.launch.rules import make_rules
+    from repro_torch.models import schema
+    from repro_torch.models.transformer import lm_schema
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    sizes = {"single-pod": {"data": 16, "model": 16},
+             "multi-pod": {"pod": 2, "data": 16, "model": 16}}
+    t_phase = time.perf_counter()
+    for mesh in ("single-pod", "multi-pod"):
+        t0 = time.perf_counter()
+        out = ROOT / "build" / "dryrun-mesh" / mesh
+        shutil.rmtree(out, ignore_errors=True)
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.extras.dryrun", "--mesh", mesh, "--all",
+             "--device-bytes", str(total), "--out", str(out)],
+            capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        if proc.returncode != 0:
+            fail(f"[dryrun-mesh] {mesh}: exit {proc.returncode}\n{proc.stdout[-3000:]}"
+                 f"\n{proc.stderr[-3000:]}")
+        # every cell's record, priced or refused, is a file under ``out``
+        recs = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+        if sorted((r["arch"], r["shape"]) for r in recs) != sorted(all_cell_ids()):
+            fail(f"[dryrun-mesh] {mesh}: {len(recs)} records, not one for each of the "
+                 f"{len(all_cell_ids())} cells")
+        ok = {(r["arch"], r["shape"]): r for r in recs if r["status"] == "ok"}
+        refused = [r for r in recs if r["status"] == "not ported"]
+        if set(ok) != set(MESH_CELLS):
+            fail(f"[dryrun-mesh] {mesh}: priced {sorted(ok)}, not {sorted(MESH_CELLS)}")
+        if any("ROADMAP.md" not in r["reason"] for r in refused):
+            fail(f"[dryrun-mesh] {mesh}: a cell refused without its ROADMAP item")
+        for (arch, shape), r in sorted(ok.items()):
+            cfg = get(arch).config
+            want = schema.rank_bytes(lm_schema(cfg), make_rules(cfg, r["kind"], sizes[mesh]),
+                                     sizes[mesh])
+            got = r["memory"]["param_bytes"]
+            if got != want:
+                fail(f"[dryrun-mesh] {arch} x {shape} x {r['mesh']}: {got} parameter bytes a "
+                     f"chip, the port's spec_for gives {want}")
+            coll = r["collectives"]
+            log(f"[dryrun-mesh] {arch} x {shape} x {r['mesh']} ({r['n_chips']} chips): a chip "
+                f"holds {got} parameter bytes ({got / 1e9:.4f} GB, as spec_for gives); priced "
+                f"peak {r['memory']['peak_bytes'] / 1e9:.3f} GB, fits {total / 1e9:.3f} GB: "
+                f"{r['fits']}; FLOPs {r['flops']:.6g}, HBM bytes {r['bytes']:.6g}; collective "
+                f"bytes by kind { {k: f'{v:.4g}' for k, v in coll['bytes_by_kind'].items()} }, "
+                f"calls {coll['count_by_kind']}; roofline t_compute "
+                f"{r['roofline']['t_compute_s'] * 1e3:.3f} ms, t_memory "
+                f"{r['roofline']['t_memory_s'] * 1e3:.3f} ms, t_collective "
+                f"{r['roofline']['t_collective_s'] * 1e3:.3f} ms -> {r['roofline']['bottleneck']}")
+        log(f"[dryrun-mesh] {mesh} ({MESHES[mesh][0]}): {len(ok)} cells priced, {len(refused)} "
+            f"refused naming their ROADMAP item, "
+            f"{sum(r['status'] == 'skipped' for r in recs)} skipped (their arch's skipped_shapes), "
+            f"a record each under {out.relative_to(ROOT)}, in {time.perf_counter() - t0:.2f} s")
+    log(f"[dryrun-mesh] phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 # ------------------------------------------------------------ [moe-mla]
 def plain_attention(q, k, v, **kw) -> torch.Tensor:
     """``mha_reference`` a chunk of kv heads at a time (its float32 logits
@@ -4278,6 +4811,10 @@ def main() -> None:
     # ---- phase 11: gemma-2b prefill and decode at its published widths ------
     kernel_rows += phase_lm(dev, smi)
 
+    # ---- [tp]: gemma-2b on a (data=2, model=2) mesh of 4 gloo ranks ---------
+    phase_tp(dev, smi)
+    torch.cuda.empty_cache()
+
     # ---- phase 12: deepseek-v3 and mixtral-8x22b, published widths, cut depth
     phase_moe_mla(dev)
     torch.cuda.empty_cache()
@@ -4294,6 +4831,9 @@ def main() -> None:
     # ---- [dryrun]: every cell priced on meta; the cells the card holds run -
     phase_dryrun(smi)
     torch.cuda.empty_cache()
+
+    # ---- [dryrun-mesh]: the dense-LM serving cells on the pod meshes -------
+    phase_dryrun_mesh(smi)
 
     # ---- [analysis]: the static analyzer's five passes on the card, last, so
     # the main path's first calls are as cold as before it was added ---------

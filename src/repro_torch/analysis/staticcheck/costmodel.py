@@ -20,7 +20,9 @@ once under the op recorder (`oplog`) and its log priced:
   * ``collective_bytes``  — bytes the sharded engine's collectives move, a
     shard: the per-shard result bytes × the ring multiplier of the JAX
     package's ``roofline.parse_collectives`` (all-reduce 2(n−1)/n,
-    all-gather (n−1)/n, permute 1×), with n = S, the stacked shards.
+    all-gather (n−1)/n, permute 1×), with n = S, the stacked shards; on a
+    mesh (`log_collectives`) the functional collectives of DTensor's
+    redistributions, priced the same way with n their group's size.
 
 The per-entry-point report is enforced against ``analysis/budgets.json``
 (the port's own copy): ``cost-budget-exceeded``, ``cost-budget-missing``
@@ -212,6 +214,34 @@ def collective_bytes(calls) -> dict:
         mult = {"all-reduce": 2.0 * ring, "all-gather": ring, "collective-permute": 1.0}[kind]
         out[kind] = out.get(kind, 0.0) + c.result_bytes_per_shard * mult
     return out
+
+
+# the functional collectives of DTensor's redistributions (a model on a mesh)
+FUNCTIONAL_KIND = {
+    "all_reduce": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+_RING = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0, "all-to-all": 1.0}
+
+
+def log_collectives(log) -> tuple[dict, dict]:
+    """``(bytes by kind, calls by kind)`` a rank's functional collectives
+    in ``log`` move: each result's bytes × the ring multiplier of the JAX
+    package's ``roofline.parse_collectives`` (all-reduce 2(n−1)/n, the
+    others (n−1)/n), n the collective's group size."""
+    nbytes: dict[str, float] = {}
+    count: dict[str, int] = {}
+    for o in log.ops:
+        kind = FUNCTIONAL_KIND.get(base_name(o.name)) if o.name.startswith("_c10d") else None
+        if kind is None:
+            continue
+        n = max(o.group_size, 1)
+        b = sum(_tensor_bytes(t) for t in o.outputs) * _RING[kind] * (n - 1) / n
+        nbytes[kind] = nbytes.get(kind, 0.0) + b
+        count[kind] = count.get(kind, 0) + 1
+    return nbytes, count
 
 
 # ---------------------------------------------------------------- estimate

@@ -10,6 +10,14 @@ through ``ctypes`` with raw pointers, out of the dispatcher's sight, so the
 pseudo-op is what tells the log which storages it read and wrote; its
 operations are counted from the plain version (`costmodel`).
 
+On a mesh the recorder sees what each rank runs: an op on `DTensor`s is
+let through (``NotImplemented``) to DTensor's dispatch, whose local ops —
+at the rank's local shapes — and the functional collectives of its
+redistributions come back to the recorder; a collective's record carries
+the size of its group (``group_size``). The ops DTensor's sharding
+propagation runs on fake tensors of the global shapes (under a
+``FakeTensorMode``) are not logged: no rank runs them.
+
 Storage identity: the recorder keeps every tensor it saw alive until the
 log is dropped, so no storage is freed and reused under another tensor
 while the log is read. A storage's lifetime in the log runs from the first
@@ -23,6 +31,8 @@ import traceback
 from typing import Any, Callable, Iterator
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -68,6 +78,7 @@ class OpRecord:
     sync: bool = False          # a device → host transfer
     flops: float | None = None  # set for a pseudo-op (its plain version's)
     within: str = ""            # the `Kernels` op it ran inside, if any
+    group_size: int = 0         # a functional collective's group size
 
 
 @dataclasses.dataclass
@@ -130,7 +141,7 @@ class OpRecorder(TorchDispatchMode):
             dtype=_dtype_name(t.dtype), device=t.device.type,
         )
 
-    def note(self, name: str, inputs, outputs, *, flops=None) -> None:
+    def note(self, name: str, inputs, outputs, *, flops=None, group_size: int = 0) -> None:
         ins = tuple(self.rec(t) for t in tensors_in(inputs))
         outs = tuple(self.rec(t) for t in tensors_in(outputs))
         sync = name in SYNC_OPS or (
@@ -138,17 +149,27 @@ class OpRecorder(TorchDispatchMode):
         ) and any(i.device == "cuda" for i in ins) and any(o.device == "cpu" for o in outs)
         self.log.ops.append(OpRecord(
             name, ins, outs, _caller() if sync else "", sync, flops,
-            self.within[-1] if self.within else "",
+            self.within[-1] if self.within else "", group_size,
         ))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor's local ops come back here
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if not self.paused:
+        # DTensor's sharding propagation runs each new op once on fake
+        # tensors of the global shapes: no rank runs those
+        fake = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+        if not self.paused and not fake:
             flat_in, _ = tree_flatten((args, kwargs))
             flat_out, _ = tree_flatten(out)
+            group = 0
+            if func.namespace == "_c10d_functional":
+                names = [a for a in flat_in if isinstance(a, str)]
+                if names:
+                    group = dist.distributed_c10d._resolve_process_group(names[-1]).size()
             self.note(str(func), [t for t in flat_in if isinstance(t, torch.Tensor)],
-                      [t for t in flat_out if isinstance(t, torch.Tensor)])
+                      [t for t in flat_out if isinstance(t, torch.Tensor)], group_size=group)
         return out
 
     def __enter__(self):

@@ -1,5 +1,5 @@
-"""Checkpointing with async save and restart: the port of
-``src/repro/checkpoint/checkpointer.py``, on one device.
+"""Checkpointing with async save, restart and elastic resharding: the
+port of ``src/repro/checkpoint/checkpointer.py``.
 
 Layout, as there: ``<dir>/step_<n:08d>/{manifest.json, <leaf-path>.npy
 ...}``, written under ``.tmp_step_<n:08d>/`` and renamed, so a partial
@@ -14,8 +14,15 @@ bfloat16: a bf16 leaf is stored as its 16-bit patterns (int16) with
 then write the tensors in place, as `optim.update` does); with
 ``async_save`` a writer thread writes the files, and `wait` joins it
 before the next save or any read (staleness of at most one checkpoint).
-Restoring onto another mesh waits for the port's ``torch.distributed``
-path: `restore` puts every leaf on one ``device``.
+
+A tree of `DTensor` leaves (a model on a mesh) is saved whole: each leaf
+is gathered to the host in full on every rank, rank 0 writes the step
+(synchronously), and every rank waits for it at a barrier. So a checkpoint
+written on a mesh of N ranks restores onto M: `restore` with
+``shardings`` (a tree of ``(mesh, placements)`` like ``like``'s leaves)
+places each leaf as the reference's ``device_put`` onto new shardings
+does, every rank keeping its own chunk; without it each leaf lands whole
+on one ``device``.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _is_namedtuple(x) -> bool:
@@ -68,6 +77,17 @@ def _rebuild(like, leaves):
     return type(like)(_rebuild(v, leaves) for v in like)
 
 
+def _placements_of(shardings) -> list:
+    """The ``(mesh, placements)`` pairs of a shardings tree, in the order
+    `flatten_with_paths` visits a tree of the same structure."""
+    if isinstance(shardings, tuple) and len(shardings) == 2 and hasattr(shardings[0], "mesh"):
+        return [shardings]
+    out = []
+    for _, child in _children(shardings):
+        out += _placements_of(child)
+    return out
+
+
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
@@ -94,9 +114,13 @@ class Checkpointer:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree) -> None:
         """Write ``tree`` as step ``step``; its tensors are copied to the
-        host before this returns."""
+        host before this returns. A tree with `DTensor` leaves is gathered
+        on every rank and written by rank 0 before any rank returns."""
         self.wait()
-        host = [(n, *_to_host(x)) for n, x in flatten_with_paths(tree)]
+        leaves = flatten_with_paths(tree)
+        sharded = any(isinstance(x, DTensor) for _, x in leaves)
+        host = [(n, *_to_host(x.full_tensor() if isinstance(x, DTensor) else x))
+                for n, x in leaves]
 
         def write():
             d = self.directory / f"step_{step:08d}"
@@ -116,7 +140,11 @@ class Checkpointer:
             tmp.rename(d)  # atomic publish: partial checkpoints never visible
             self._gc()
 
-        if self.async_save:
+        if sharded:
+            if dist.get_rank() == 0:
+                write()
+            dist.barrier()
+        elif self.async_save:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
         else:
@@ -138,14 +166,18 @@ class Checkpointer:
         steps = sorted(self.directory.glob("step_*"))
         return int(steps[-1].name.split("_")[1]) if steps else None
 
-    def restore(self, step: int, like, device=None):
+    def restore(self, step: int, like, device=None, *, shardings=None):
         """Step ``step`` in the structure of ``like`` (a tree of tensors),
-        each leaf on ``device`` (``None``: where ``like``'s leaf lies), bit
-        for bit as saved."""
+        bit for bit as saved: each leaf on ``device`` (``None``: where
+        ``like``'s leaf lies), or, with ``shardings`` (a tree like
+        ``like`` of ``(mesh, placements)`` pairs), a `DTensor` on that mesh
+        of which this rank keeps its own chunk, on ``device`` or the mesh's
+        device type."""
         self.wait()
         d = self.directory / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         by_name = {m["name"]: m for m in manifest["leaves"]}
+        places = None if shardings is None else iter(_placements_of(shardings))
         leaves = []
         for name, t in flatten_with_paths(like):
             m = by_name[name]
@@ -153,5 +185,10 @@ class Checkpointer:
             if tuple(x.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: the checkpoint holds {tuple(x.shape)}, "
                                  f"expected {tuple(t.shape)}")
-            leaves.append(x.to(t.device if device is None else device))
+            if places is None:
+                leaves.append(x.to(t.device if device is None else device))
+                continue
+            mesh, pl = next(places)
+            x = x.to(device if device is not None else mesh.device_type)
+            leaves.append(distribute_tensor(x, mesh, pl, src_data_rank=None))
         return _rebuild(like, iter(leaves))

@@ -40,9 +40,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.extras.flash_attention import flash_attention as _flash
 from repro_torch.extras.flash_attention import ref as _flash_ref
+from repro_torch.extras.flash_attention.sharded import attention_on_shards
 from repro_torch.extras.segment_mp import ref as _segment_ref
 from repro_torch.extras.segment_mp import segment_mp as _segment
 from repro_torch.kernels.bitset import bitset as _bitset
@@ -203,7 +205,12 @@ class Kernels:
     def flash_attention(self, q, k, v, *, scale=None, window=None, softcap=None) -> torch.Tensor:
         """Causal GQA attention over ``Sq == Skv``: ``q (B, S, Nq, H)``,
         ``k (B, S, Nkv, H)``, ``v (B, S, Nkv, Hv)`` → ``(B, S, Nq, Hv)`` in
-        q's dtype, with an optional sliding ``window`` and tanh ``softcap``."""
+        q's dtype, with an optional sliding ``window`` and tanh ``softcap``.
+        On `DTensor`s each rank attends over its own ``(batch, heads)``
+        block (`attention_on_shards`)."""
+        if isinstance(q, DTensor):
+            return attention_on_shards(self.flash_attention, q, k, v, scale=scale,
+                                       window=window, softcap=softcap)
         return _flash_ref.mha_reference(q, k, v, scale=scale, window=window, softcap=softcap)
 
     # ------------------------------------------------------------ host
@@ -256,6 +263,9 @@ class CudaKernels(Kernels):
         return _segment.SegmentMP.apply(messages, dst_sorted, n_nodes)
 
     def flash_attention(self, q, k, v, *, scale=None, window=None, softcap=None):
+        if isinstance(q, DTensor):
+            return attention_on_shards(self.flash_attention, q, k, v, scale=scale,
+                                       window=window, softcap=softcap)
         return _flash.FlashAttention.apply(q, k, v, scale, window, softcap)
 
 

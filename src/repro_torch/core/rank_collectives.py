@@ -53,6 +53,15 @@ from repro_torch.core import collectives
 # in gloo's writev with "Bad address"): run on pinned host copies
 GLOO_HOST_OPS = frozenset({"p2p"})
 
+# the functional collectives (what DTensor's redistributions call) that a
+# gloo group refuses with CUDA tensors on the card's torch
+# (tests/test_torch_cuda.py; 2.11.0+cu128: all_gather_into_tensor on a CUDA
+# tensor kills the process with SIGSEGV, while all_reduce, reduce_scatter
+# and all_to_all take CUDA tensors): run on pinned host copies once
+# `stage_functional_collectives` has registered the rule
+GLOO_FUNCTIONAL_HOST_OPS = frozenset({"all_gather_into_tensor"})
+_functional_rule = None
+
 # bytes copied to pinned host memory (each operand, then each result, once)
 # by the staging rule, per collective name
 staged_bytes: collections.Counter = collections.Counter()
@@ -76,6 +85,37 @@ def _host(t: torch.Tensor, name: str) -> torch.Tensor:
 def _back(t: torch.Tensor, device, name: str) -> torch.Tensor:
     staged_bytes[name] += t.numel() * t.element_size()
     return t.to(device)
+
+
+def _staged_all_gather_into_tensor(t: torch.Tensor, group_size: int, group_name) -> torch.Tensor:
+    """``_c10d_functional.all_gather_into_tensor`` on a CUDA tensor of a
+    gloo group: the operand to pinned host memory, the gather there, the
+    result back to the card."""
+    group = dist.distributed_c10d._resolve_process_group(group_name)
+    if dist.get_backend(group) != "gloo":
+        raise NotImplementedError(
+            f"all_gather_into_tensor on a {dist.get_backend(group)} group: the port's mesh runs "
+            "on gloo groups only (one card)")
+    name = "all_gather_into_tensor"
+    host = _host(t.contiguous(), name)
+    out = torch.empty((group_size * t.shape[0], *t.shape[1:]), dtype=t.dtype, pin_memory=True)
+    dist.all_gather_into_tensor(out, host, group=group)
+    return _back(out, t.device, name)
+
+
+def stage_functional_collectives() -> None:
+    """Register the host staging of `GLOO_FUNCTIONAL_HOST_OPS` as the CUDA
+    kernels of those ``_c10d_functional`` ops, once a process: DTensor's
+    redistributions (an all-gather of an FSDP weight, Shard → Replicate)
+    then reach the gloo group with host tensors. A mesh of device type
+    ``"cuda"`` over a gloo world needs it (`launch.mesh.make_mesh` calls
+    it); it changes nothing on the CPU."""
+    global _functional_rule
+    if _functional_rule is not None:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", _staged_all_gather_into_tensor, "CUDA")
+    _functional_rule = lib
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:

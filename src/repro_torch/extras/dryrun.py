@@ -31,15 +31,37 @@ H100, and the op log takes XLA's place:
     peak for ``memory.peak_bytes`` and ``fits``; the extrapolated peak is
     kept beside it.
 
-No mesh and no collectives: the collective term is 0 on one card.
+On one card there is no collective: the collective term is 0.
+
+``--mesh single-pod`` / ``multi-pod`` prices a cell per chip on the
+reference's 16×16 (256 chips) or 2×16×16 (512) mesh: the process joins a
+world of 256 or 512 ranks as rank 0 (torch's ``fake`` backend over a
+``FakeStore``: collectives move nothing), `make_production_mesh` builds the
+mesh, and the cell's step runs on meta `DTensor`s under ``make_rules(cfg,
+kind, mesh)`` — parameters placed by their schema axes (`param_pspecs`),
+inputs by the cell's ``arg_axes``. The recorder sees each op at the rank's
+local shapes (`oplog` lets DTensor's dispatch run and records its local
+ops and functional collectives), so every figure is one chip's: parameter
+bytes, peak, FLOPs, HBM bytes, and collective bytes and calls by kind
+(`costmodel.log_collectives`, the reference's ``coll_by_kind`` and
+``coll_count``). A mesh cell is priced from the depth probes alone (the
+fit gives its peak too: a serving step's peak is linear in depth); no
+full-depth step is recorded. The cells on a pod mesh are the dense LMs'
+serving cells (`MESH_CELLS`); every other raises `NotImplementedError`
+naming its ``ROADMAP.md`` item (`mesh_refusal`); ``--all`` prints it and
+saves its record, with ``status`` "not ported" and the ``reason``.
+A fake default group holds for the whole process: run a pod mesh in a
+process of its own.
 
 Usage (it needs no card):
   PYTHONPATH=src python -m repro_torch.extras.dryrun --arch gemma-2b --shape train_4k
   PYTHONPATH=src python -m repro_torch.extras.dryrun --all [--variant opt]
+  PYTHONPATH=src python -m repro_torch.extras.dryrun --mesh single-pod --all
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -48,6 +70,8 @@ import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import optim
 from repro_torch.analysis import roofline as rl
@@ -57,12 +81,23 @@ from repro_torch.configs.base import GNNConfig, LMConfig, RecSysConfig
 from repro_torch.core.backend import Kernels
 from repro_torch.extras import shapes as shapes_lib
 from repro_torch.extras.flash_attention.flash_attention import FlashAttention
+from repro_torch.extras.flash_attention.sharded import attention_on_shards
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.rules import make_rules
+from repro_torch.launch.sharding import axis_rules, shard_input
+from repro_torch.models import transformer as tf
 from repro_torch.extras.segment_mp.segment_mp import SegmentMP
 from repro_torch.kernels.cin.cin import CinLayer
 
 ARTIFACTS = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 H100_BYTES = 80e9  # one H100 SXM's HBM3 (data sheet: 80 GB)
 MESH = "1xH100"
+# the meshes a cell is priced on: the record's mesh name and chip count
+MESHES = {"one-card": (MESH, 1), "single-pod": ("16x16", 256), "multi-pod": ("2x16x16", 512)}
+# the cells priced on a pod mesh: the dense LMs' serving
+MESH_CELLS = frozenset((a, s) for a in ("gemma-2b", "qwen2-72b", "qwen1.5-110b")
+                       for s in ("prefill_32k", "decode_32k"))
+_POD_MESHES: dict = {}
 
 
 def _opt_cfg_for(cfg) -> optim.AdamWConfig:
@@ -147,29 +182,104 @@ class FusedKernels(Kernels):
         return SegmentMP.apply(messages, dst_sorted, n_nodes, self._segment_mp)
 
     def flash_attention(self, q, k, v, *, scale=None, window=None, softcap=None):
+        if isinstance(q, DTensor):
+            return attention_on_shards(self.flash_attention, q, k, v, scale=scale,
+                                       window=window, softcap=softcap)
         return FlashAttention.apply(q, k, v, scale, window, softcap, self._flash_attention)
 
 
-def cost_of(entry, shape_id: str, cfg, opt_cfg) -> dict:
-    """One recorded run of the cell's step at ``cfg`` on meta tensors:
-    ``flops``, ``bytes``, ``peak`` (live bytes) and ``argument_bytes``."""
-    cell = shapes_lib.build_cell(dataclasses.replace(entry, config=cfg), shape_id)
+def mesh_refusal(entry, shape_id: str) -> str | None:
+    """Why a cell is not priced on a pod mesh yet (its ``ROADMAP.md``
+    item), or None for one of `MESH_CELLS`."""
+    if (entry.arch_id, shape_id) in MESH_CELLS:
+        return None
+    where = "ROADMAP.md, Queue 1 item 5"
+    if entry.family in ("gnn", "recsys"):
+        return f"xDeepFM and the GNNs on a mesh are a later slice ({where}, slice 2)"
+    cfg = entry.config
+    if cfg.moe is not None or cfg.mla is not None:
+        return f"MoE and MLA on a mesh (expert parallelism) are a later slice ({where}, slice 1)"
+    return f"training on a mesh (FSDP) is a later slice ({where}, slice 3)"
+
+
+def pod_mesh(mesh: str):
+    """The reference's ``mesh`` (``"single-pod"``: ``(data=16, model=16)``,
+    ``"multi-pod"``: ``(pod=2, data=16, model=16)``) with this process as
+    rank 0 of a world of fake ranks (torch's ``fake`` backend: no rank
+    runs, no collective moves data)."""
+    if mesh not in _POD_MESHES:
+        n = MESHES[mesh][1]
+        if not dist.is_initialized():
+            from torch.testing._internal.distributed.fake_pg import FakeStore
+
+            dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+        if dist.get_world_size() != n:
+            raise RuntimeError(f"the {mesh} mesh needs a world of {n}; this process is in one "
+                               f"of {dist.get_world_size()}: run each mesh in its own process")
+        _POD_MESHES[mesh] = make_production_mesh(multi_pod=mesh == "multi-pod",
+                                                 device_type="cpu")
+    return _POD_MESHES[mesh]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def mesh_args(cell, cfg, opt_cfg, mesh, rules: dict) -> tuple:
+    """The cell's abstract arguments on ``mesh``: a model whose parameters
+    are meta `DTensor`s placed by ``rules``, and every input placed by the
+    cell's ``arg_axes``."""
     args = cell.abstract_args(cfg, opt_cfg)
+    axes = cell.arg_axes(cfg, opt_cfg)
+    model = tf.Transformer(cfg, device=torch.device("meta"), mesh=mesh, rules=rules)
+
+    def place(t, a):
+        if isinstance(t, tf.DecodeCache):
+            return tf.DecodeCache(tuple(place(c, ca) for c, ca in zip(t.data, a.data)),
+                                  t.kind, t.s_cap, t.rolling)
+        return shard_input(t, *a) if isinstance(t, torch.Tensor) else t
+
+    with axis_rules(mesh, rules):
+        return (model,) + tuple(place(t, a) for t, a in zip(args[1:], axes[1:]))
+
+
+def cost_of(entry, shape_id: str, cfg, opt_cfg, mesh=None) -> dict:
+    """One recorded run of the cell's step at ``cfg`` on meta tensors:
+    ``flops``, ``bytes``, ``peak`` (live bytes) and ``argument_bytes``; on
+    a ``mesh``, one rank's, with ``param_bytes`` and its collectives
+    (``coll`` bytes, ``coll:<kind>`` bytes and ``count:<kind>`` calls)."""
+    cell = shapes_lib.build_cell(dataclasses.replace(entry, config=cfg), shape_id)
+    scope = contextlib.nullcontext()
+    if mesh is None:
+        args = cell.abstract_args(cfg, opt_cfg)
+    else:
+        rules = make_rules(cfg, cell.kind, mesh)
+        args = mesh_args(cell, cfg, opt_cfg, mesh, rules)
+        scope = axis_rules(mesh, rules)
     args[0].kernels = FusedKernels()
     fn = cell.fn(cfg, opt_cfg)
     rec = oplog.OpRecorder()
-    rec.log.args = tuple(rec.rec(t) for t in shapes_lib.leaves(args).values())
-    with rec:
+    rec.log.args = tuple(rec.rec(_local(t)) for t in shapes_lib.leaves(args).values())
+    with scope, rec:
         out = fn(*args)
-    rec.log.results = tuple(rec.rec(t) for t in shapes_lib.leaves(out).values())
+    rec.log.results = tuple(rec.rec(_local(t)) for t in shapes_lib.leaves(out).values())
     log = rec.log
     arg_storages = {t.storage: t.nbytes for t in log.args}
-    return {
+    cost = {
         "flops": costmodel.log_flops(log),
         "bytes": costmodel.log_bytes(log),
         "peak": costmodel.peak_bytes(log),
         "argument_bytes": float(sum(arg_storages.values())),
     }
+    if mesh is not None:
+        nbytes, count = costmodel.log_collectives(log)
+        cost["param_bytes"] = float(sum(_local(p).numel() * p.element_size()
+                                        for p in args[0].parameters()))
+        cost["coll"] = float(sum(nbytes.values()))
+        for kind in costmodel.FUNCTIONAL_KIND.values():
+            cost[f"coll:{kind}"] = nbytes.get(kind, 0.0)
+            cost[f"count:{kind}"] = float(count.get(kind, 0))
+    return cost
 
 
 def _fit(probes: list, full: tuple, monomials) -> dict:
@@ -193,12 +303,12 @@ def _quad2(d):
     return (1.0, k, m, k * k, m * m, k * m)
 
 
-def depth_probes(entry, shape_id: str, cfg, opt_cfg):
+def depth_probes(entry, shape_id: str, cfg, opt_cfg, mesh=None):
     """``(probes, monomials, depths)`` of `measure_cost`: the small-depth
     variants' ``(depths, cost)``, the fit's terms, and ``cfg``'s own depths
     (None: a recsys model, priced directly)."""
     def probe(cfg_small):
-        return cost_of(entry, shape_id, cfg_small, opt_cfg)
+        return cost_of(entry, shape_id, cfg_small, opt_cfg, mesh)
 
     if isinstance(cfg, LMConfig):
         k = cfg.moe.first_k_dense if cfg.moe is not None else cfg.n_layers
@@ -215,7 +325,7 @@ def depth_probes(entry, shape_id: str, cfg, opt_cfg):
     return [((), probe(cfg))], None, None
 
 
-def measure_cost(entry, shape_id: str, cfg, opt_cfg) -> dict:
+def measure_cost(entry, shape_id: str, cfg, opt_cfg, mesh=None) -> dict:
     """The cell's cost at full depth from small-depth variants, as the
     reference prices it, with one more term. The reference extrapolates
     ``base + Σ_s L_s · c_s``, linear in each stack's depth ``L_s``. A
@@ -229,7 +339,7 @@ def measure_cost(entry, shape_id: str, cfg, opt_cfg) -> dict:
     k·m``: the attention leaves stack both). Inference steps fit with a
     zero quadratic term. A recsys model has no layer stack: it is priced
     directly."""
-    probes, monomials, depths = depth_probes(entry, shape_id, cfg, opt_cfg)
+    probes, monomials, depths = depth_probes(entry, shape_id, cfg, opt_cfg, mesh)
     if monomials is None:
         return probes[0][1]
     return _fit(probes, depths, monomials)
@@ -260,7 +370,7 @@ def apply_variant(cfg, kind: str):
 def _save(out: dict, variant: str | None, out_dir: pathlib.Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     suffix = f"__{variant}" if variant else ""
-    path = out_dir / f"{out['arch']}__{out['shape']}__{MESH}{suffix}.json"
+    path = out_dir / f"{out['arch']}__{out['shape']}__{out['mesh']}{suffix}.json"
     path.write_text(json.dumps(out, indent=2, default=str))
 
 
@@ -272,20 +382,29 @@ def run_cell(
     variant: str | None = None,
     device_bytes: float = H100_BYTES,
     out_dir: "pathlib.Path | str" = ARTIFACTS,
+    mesh: str = "one-card",
 ) -> dict:
-    """Price one cell (see the module docstring); ``status`` is ``ok``,
-    ``skipped`` (one of the arch's ``skipped_shapes``) or ``error`` (the
-    exception and its traceback are in the record). With ``save`` the
-    record is written as JSON into ``out_dir``."""
+    """Price one cell (see the module docstring) on ``mesh`` (`MESHES`);
+    ``status`` is ``ok``, ``skipped`` (one of the arch's
+    ``skipped_shapes``) or ``error`` (the exception and its traceback are
+    in the record). A cell not priced on a pod mesh yet raises
+    `NotImplementedError` (`mesh_refusal`). With ``save`` the record is
+    written as JSON into ``out_dir``."""
     out_dir = pathlib.Path(out_dir)
     entry = get(arch_id)
     skipped = dict(entry.skipped_shapes)
     if shape_id in skipped:
-        out = {"arch": arch_id, "shape": shape_id, "mesh": MESH,
+        out = {"arch": arch_id, "shape": shape_id, "mesh": MESHES[mesh][0],
                "status": "skipped", "reason": skipped[shape_id]}
         if save:
             _save(out, variant, out_dir)
         return out
+    if mesh != "one-card":
+        reason = mesh_refusal(entry, shape_id)
+        if reason is not None:
+            raise NotImplementedError(f"{arch_id} x {shape_id} on the {mesh} mesh: {reason}")
+        return _run_mesh_cell(entry, shape_id, mesh, save=save, variant=variant,
+                              device_bytes=device_bytes, out_dir=out_dir)
     cell = shapes_lib.build_cell(entry, shape_id)
     cfg = entry.config
     opt_cfg = _opt_cfg_for(cfg)
@@ -336,6 +455,58 @@ def run_cell(
     return out
 
 
+def _run_mesh_cell(entry, shape_id: str, mesh: str, *, save: bool, variant, device_bytes,
+                   out_dir) -> dict:
+    """A `MESH_CELLS` cell priced a chip on a pod mesh, from the depth
+    probes (see the module docstring)."""
+    name, n_chips = MESHES[mesh]
+    cell = shapes_lib.build_cell(entry, shape_id)
+    cfg = entry.config
+    opt_cfg = _opt_cfg_for(cfg)
+    if variant == "opt":
+        cfg = apply_variant(cfg, cell.kind)
+        entry = dataclasses.replace(entry, config=cfg)
+    out: dict = {"arch": entry.arch_id, "shape": shape_id, "mesh": name, "kind": cell.kind,
+                 "status": "ok", "variant": variant or "baseline", "n_chips": n_chips}
+    t0 = time.perf_counter()
+    try:
+        pm = pod_mesh(mesh)
+        cost = measure_cost(entry, shape_id, cfg, opt_cfg, pm)
+        roof = rl.Roofline(
+            flops=cost["flops"], hbm_bytes=cost["bytes"], collective_bytes=cost["coll"],
+            n_chips=n_chips, model_flops=_model_flops(cell, cfg),
+            peak_flops=rl.peak_for(cfg.dtype))
+        out.update({
+            "measure_s": time.perf_counter() - t0,
+            "rules": make_rules(cfg, cell.kind, pm),
+            "memory": {"param_bytes": cost["param_bytes"],
+                       "argument_bytes": cost["argument_bytes"], "peak_bytes": cost["peak"]},
+            "flops": cost["flops"], "bytes": cost["bytes"],
+            "collectives": {
+                "bytes": cost["coll"],
+                "bytes_by_kind": {k: cost[f"coll:{k}"] for k in costmodel.FUNCTIONAL_KIND.values()},
+                "count_by_kind": {k: int(round(cost[f"count:{k}"]))
+                                  for k in costmodel.FUNCTIONAL_KIND.values()}},
+            "device_bytes": float(device_bytes),
+            "fits": cost["peak"] <= device_bytes,
+            "roofline": roof.to_dict(),
+        })
+        print(
+            f"[OK] {entry.arch_id} × {shape_id} × {name}: a chip holds "
+            f"{cost['param_bytes'] / 1e9:.3f} GB of parameters, peak {cost['peak'] / 1e9:.3f} "
+            f"GB ({'fits' if out['fits'] else 'does not fit'}), collectives "
+            f"{cost['coll'] / 1e9:.3f} GB → {roof.bottleneck} "
+            f"(priced in {out['measure_s']:.1f}s)", flush=True)
+    except Exception as e:  # noqa: BLE001 — a failed cell is a recorded bug
+        out["status"] = "error"
+        out["error"] = f"{type(e).__name__}: {e}"
+        out["traceback"] = traceback.format_exc()[-4000:]
+        print(f"[FAIL] {entry.arch_id} × {shape_id} × {name}: {out['error']}", flush=True)
+    if save:
+        _save(out, variant, out_dir)
+    return out
+
+
 def all_cell_ids() -> list[tuple[str, str]]:
     """Every (arch, shape) of the LM, GNN and recsys families: assigned
     shapes, then skipped ones."""
@@ -353,6 +524,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device-bytes", type=float, default=H100_BYTES,
                     help="the card's memory that `fits` holds the peak to")
     ap.add_argument("--out", default=str(ARTIFACTS), help="directory of the JSON records")
+    ap.add_argument("--mesh", default="one-card", choices=list(MESHES),
+                    help="one H100, or the reference's 16x16 / 2x16x16 mesh (fake ranks)")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -361,13 +534,26 @@ def main(argv=None) -> None:
         if not (args.arch and args.shape):
             ap.error("--arch/--shape or --all")
         ids = [(args.arch, args.shape)]
-    results = [run_cell(a, s, variant=args.variant, device_bytes=args.device_bytes,
-                        out_dir=args.out) for a, s in ids]
+    results = []
+    for a, s in ids:
+        try:
+            r = run_cell(a, s, variant=args.variant, device_bytes=args.device_bytes,
+                         out_dir=args.out, mesh=args.mesh)
+        except NotImplementedError as e:
+            if not args.all:
+                raise
+            print(f"[NOT PORTED] {e}", flush=True)
+            r = {"arch": a, "shape": s, "mesh": MESHES[args.mesh][0], "status": "not ported",
+                 "reason": str(e)}
+            _save(r, args.variant, pathlib.Path(args.out))
+        results.append(r)
 
     n_ok = sum(r["status"] == "ok" for r in results)
     n_skip = sum(r["status"] == "skipped" for r in results)
+    n_not = sum(r["status"] == "not ported" for r in results)
     n_err = sum(r["status"] == "error" for r in results)
-    print(f"\n=== dry-run: {n_ok} ok, {n_skip} skipped, {n_err} failed ===")
+    print(f"\n=== dry-run: {n_ok} ok, {n_skip} skipped, {n_not} not ported on this mesh, "
+          f"{n_err} failed ===")
     if n_err:
         raise SystemExit(1)
 

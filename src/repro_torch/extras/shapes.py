@@ -9,17 +9,18 @@ Every (architecture × assigned input shape) cell defines:
     tensors (shapes and dtypes, never allocated): a `torch.nn.Module` of
     meta parameters in the place of the JAX params tree, the AdamW state
     (int8 moments where the optimizer config asks for them), the batch;
+  * ``arg_axes(cfg, opt_cfg)``      — the logical axes of every leaf of
+    those arguments, as the reference's: the schema's axes in the place of
+    the model (`schema_axes`), the optimizer state's (`opt_axes`), the
+    batch's; mapped to a mesh by the active rule set (``launch/rules.py``);
   * ``kind``                        — train / prefill / decode /
-    decode_long / serve / retrieve.
+    decode_long / serve / retrieve;
+  * ``donate``                      — the arguments the step may overwrite
+    (``(0, 1)`` for train, ``(1,)`` for decode).
 
 Sharded dims are padded to multiples of 512 (`_pad`) as in the JAX package,
 so every cell's shapes equal its shapes there. A decode step's position is
 a Python int (the port's ``decode_step`` takes one): the cache's last slot.
-
-Not ported yet, until the port has a multi-card path: the logical axes of
-each leaf (``arg_axes``, ``schema_axes``, ``opt_abstract_and_axes``'s axes)
-and the donated arguments (``donate``); the port's schemas carry no logical
-axes.
 """
 from __future__ import annotations
 
@@ -34,14 +35,14 @@ from repro_torch.configs.base import GNN_SHAPES, ArchEntry, GNNConfig, LMConfig
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import transformer as tf
-from repro_torch.models.schema import DTYPES
+from repro_torch.models.schema import DTYPES, axes_by_name, schema_axes
 from repro_torch.train.step import make_train_step
 
 F32, I32, BOOL = torch.float32, torch.int32, torch.bool
 META = torch.device("meta")
 
 __all__ = ["LM_SHAPES", "GNN_SHAPES", "REC_SHAPES", "CellDef", "lm_cell", "gnn_cell",
-           "recsys_cell", "build_cell", "all_cells", "leaves"]
+           "recsys_cell", "build_cell", "all_cells", "leaves", "opt_axes", "schema_axes"]
 
 
 def _pad(n: int, mult: int = 512) -> int:
@@ -55,6 +56,22 @@ def _sds(shape, dtype) -> torch.Tensor:
 def _opt_abstract(model: torch.nn.Module, opt_cfg: optim.AdamWConfig):
     """The AdamW state of ``model``'s meta parameters."""
     return optim.init(opt_cfg, dict(model.named_parameters()))
+
+
+def opt_axes(schema: dict, opt_cfg: optim.AdamWConfig) -> optim.AdamWState:
+    """The logical axes of the AdamW state of ``schema``'s parameters (the
+    axes half of the reference's ``opt_abstract_and_axes``), keyed as the
+    port's state is, by dotted parameter name: each moment has its
+    parameter's axes, or with quantized moments a ``QTensor`` whose scale
+    (one a row of the last dim) keeps every axis but the last."""
+    def moment(a):
+        if opt_cfg.quantize_moments:
+            return optim.QTensor(q=a, scale=tuple(a[:-1]) + (None,))
+        return a
+
+    flat = axes_by_name(schema)
+    return optim.AdamWState(step=(), m={n: moment(a) for n, a in flat.items()},
+                            v={n: moment(a) for n, a in flat.items()})
 
 
 def _no_grad(fn: Callable) -> Callable:
@@ -72,6 +89,8 @@ class CellDef:
     kind: str                      # train / prefill / decode / serve / ...
     fn: Callable                   # (cfg, opt_cfg) -> step callable
     abstract_args: Callable        # (cfg, opt_cfg) -> tuple of meta args
+    arg_axes: Callable             # (cfg, opt_cfg) -> the args' logical axes
+    donate: tuple[int, ...] = ()
 
 
 # -------------------------------------------------------------------- LM
@@ -83,17 +102,22 @@ LM_SHAPES = {
 }
 
 
-def _lm_cache_abstract(cfg: LMConfig, batch: int, s_cap: int) -> tf.DecodeCache:
+def _lm_cache_abstract(cfg: LMConfig, batch: int, s_cap: int):
+    """The decode cache's meta tensors and their logical axes (two
+    `DecodeCache`s)."""
     dt = DTYPES[cfg.dtype]
     L = cfg.n_layers
     if cfg.mla is not None:
         m = cfg.mla
         data = (_sds((L, batch, s_cap, m.kv_lora_rank), dt),
                 _sds((L, batch, s_cap, m.d_rope), dt))
+        axes = (("layer", "batch", "kv_seq", None),) * 2
     else:
         sh = (L, batch, s_cap, cfg.n_kv_heads, cfg.d_head)
         data = (_sds(sh, dt), _sds(sh, dt))
-    return tf.DecodeCache(data, cfg.attn_kind, s_cap, False)
+        axes = (tf.CACHE_AXES,) * 2
+    return (tf.DecodeCache(data, cfg.attn_kind, s_cap, False),
+            tf.DecodeCache(axes, cfg.attn_kind, s_cap, False))
 
 
 def lm_cell(entry: ArchEntry, shape_id: str) -> CellDef:
@@ -112,7 +136,11 @@ def lm_cell(entry: ArchEntry, shape_id: str) -> CellDef:
             return (m, _opt_abstract(m, opt_cfg),
                     {"tokens": _sds((spec["batch"], spec["seq"]), I32)}, _sds((), I32))
 
-        return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args)
+        def arg_axes(cfg, opt_cfg):
+            sch = tf.lm_schema(cfg)
+            return (schema_axes(sch), opt_axes(sch, opt_cfg), {"tokens": ("batch", "seq")}, ())
+
+        return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args, arg_axes, donate=(0, 1))
 
     if kind == "prefill":
         def fn(cfg, opt_cfg):
@@ -121,20 +149,44 @@ def lm_cell(entry: ArchEntry, shape_id: str) -> CellDef:
         def abstract_args(cfg, opt_cfg):
             return (model(cfg), _sds((spec["batch"], spec["seq"]), I32))
 
-        return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args)
+        def arg_axes(cfg, opt_cfg):
+            return (schema_axes(tf.lm_schema(cfg)), ("batch", "seq"))
+
+        return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args, arg_axes)
 
     # decode / decode_long
     def fn(cfg, opt_cfg):
         return _no_grad(lambda m, cache, token, pos: m.decode_step(cache, token, pos))
 
     def abstract_args(cfg, opt_cfg):
-        return (model(cfg), _lm_cache_abstract(cfg, spec["batch"], spec["seq"]),
+        return (model(cfg), _lm_cache_abstract(cfg, spec["batch"], spec["seq"])[0],
                 _sds((spec["batch"], 1), I32), spec["seq"] - 1)
 
-    return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args)
+    def arg_axes(cfg, opt_cfg):
+        return (schema_axes(tf.lm_schema(cfg)),
+                _lm_cache_abstract(cfg, spec["batch"], spec["seq"])[1], ("batch", None), ())
+
+    return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args, arg_axes, donate=(1,))
 
 
 # ------------------------------------------------------------------- GNN
+def _gnn_batch_axes(cfg: GNNConfig, s: dict) -> gnn_lib.GraphBatch:
+    task = s["task"]
+    return gnn_lib.GraphBatch(
+        node_feat=("nodes", "feat"),
+        edge_src=("edges",),
+        edge_dst=("edges",),
+        node_mask=("nodes",),
+        edge_mask=("edges",),
+        edge_feat=("edges", None) if cfg.d_edge else None,
+        node_pos=("nodes", None) if cfg.kind == "egnn" else None,
+        graph_id=("nodes",) if task == "graph" else None,
+        n_graphs=s.get("n_graphs", 1),
+        labels=("graph_batch",) if task == "graph" else ("nodes",),
+        label_mask=("nodes",) if task != "graph" else None,
+    )
+
+
 def _gnn_batch_abstract(cfg: GNNConfig, s: dict, *, regression: bool = False):
     N, E = _pad(s["n"]), _pad(s["e"])
     task = s["task"]
@@ -173,7 +225,12 @@ def gnn_cell(entry: ArchEntry, shape_id: str) -> CellDef:
         return (m, _opt_abstract(m, opt_cfg),
                 {"graph": _gnn_batch_abstract(c, s, regression=regression)}, _sds((), I32))
 
-    return CellDef(entry.arch_id, shape_id, "train", fn, abstract_args)
+    def arg_axes(cfg, opt_cfg):
+        c = adapt(cfg)
+        sch = gnn_lib.gnn_schema(c)
+        return (schema_axes(sch), opt_axes(sch, opt_cfg), {"graph": _gnn_batch_axes(c, s)}, ())
+
+    return CellDef(entry.arch_id, shape_id, "train", fn, abstract_args, arg_axes, donate=(0, 1))
 
 
 # ---------------------------------------------------------------- recsys
@@ -196,6 +253,8 @@ def recsys_cell(entry: ArchEntry, shape_id: str) -> CellDef:
     def model(cfg):
         return recsys_lib.XDeepFM(cfg, device=META)
 
+    ids_ax = (("batch", "field", None), ("batch", "field", None))
+
     if kind == "train":
         def fn(cfg, opt_cfg):
             return make_train_step(cfg, opt_cfg)
@@ -207,7 +266,12 @@ def recsys_cell(entry: ArchEntry, shape_id: str) -> CellDef:
                     {"ids": ids, "bag_mask": mask, "labels": _sds((s["batch"],), I32)},
                     _sds((), I32))
 
-        return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args)
+        def arg_axes(cfg, opt_cfg):
+            sch = recsys_lib.recsys_schema(cfg)
+            return (schema_axes(sch), opt_axes(sch, opt_cfg),
+                    {"ids": ids_ax[0], "bag_mask": ids_ax[1], "labels": ("batch",)}, ())
+
+        return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args, arg_axes, donate=(0, 1))
 
     if kind == "serve":
         def fn(cfg, opt_cfg):
@@ -216,7 +280,10 @@ def recsys_cell(entry: ArchEntry, shape_id: str) -> CellDef:
         def abstract_args(cfg, opt_cfg):
             return (model(cfg),) + ids_abs(cfg, s["batch"])
 
-        return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args)
+        def arg_axes(cfg, opt_cfg):
+            return (schema_axes(recsys_lib.recsys_schema(cfg)),) + ids_ax
+
+        return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args, arg_axes)
 
     # retrieval
     def fn(cfg, opt_cfg):
@@ -225,7 +292,11 @@ def recsys_cell(entry: ArchEntry, shape_id: str) -> CellDef:
     def abstract_args(cfg, opt_cfg):
         return (model(cfg),) + ids_abs(cfg, 1) + (_sds((_pad(s["n_candidates"]),), I32),)
 
-    return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args)
+    def arg_axes(cfg, opt_cfg):
+        return (schema_axes(recsys_lib.recsys_schema(cfg)), (None, "field", None),
+                (None, "field", None), ("candidates",))
+
+    return CellDef(entry.arch_id, shape_id, kind, fn, abstract_args, arg_axes)
 
 
 # --------------------------------------------------------------- registry

@@ -13,7 +13,9 @@ group, one process a shard:
     ``"cpu"``: its groups are gloo, whatever device the ranks' tensors are
     on);
   * `make_production_mesh` is the reference's (16, 16) / (2, 16, 16) mesh,
-    when the world has that many ranks.
+    when the world has that many ranks;
+  * `make_mesh` is any named mesh over the world, for model sharding (its
+    device type the card's, see there).
 
 Functions only, never module-level meshes: importing this module touches
 no process group.
@@ -25,13 +27,15 @@ import queue
 import socket
 import time
 import traceback
+from collections.abc import Mapping
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["make_host_mesh", "make_production_mesh", "mesh_axis_size", "spawn_ranks"]
+__all__ = ["make_host_mesh", "make_mesh", "make_production_mesh", "mesh_axis_names",
+           "mesh_axis_size", "spawn_ranks"]
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
@@ -49,6 +53,23 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") 
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
+def make_mesh(shape: Mapping, device_type: str = "cuda") -> DeviceMesh:
+    """A mesh ``{axis name: size}`` over the initialized world (its size
+    the product of ``shape``'s), for model sharding. On the one-card
+    machine every rank shares ``cuda:0`` in a gloo world: the mesh's device
+    type is ``"cuda"``, so DTensors keep their shards on the card (a
+    ``"cpu"`` mesh moves them to the host), and the functional all-gather
+    that gloo refuses on CUDA tensors is staged through pinned host memory
+    (`core.rank_collectives.stage_functional_collectives`)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized process group (spawn_ranks)")
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        from repro_torch.core.rank_collectives import stage_functional_collectives
+
+        stage_functional_collectives()
+    return init_device_mesh(device_type, tuple(shape.values()), mesh_dim_names=tuple(shape))
+
+
 def make_host_mesh(n: int | None = None, axis: str = "data") -> DeviceMesh:
     """The 1-D mesh, dim named ``axis``, over the ``n`` ranks of the
     initialized world (``None``: all of them). Its device type is
@@ -63,16 +84,25 @@ def make_host_mesh(n: int | None = None, axis: str = "data") -> DeviceMesh:
     return init_device_mesh("cpu", (n,), mesh_dim_names=(axis,))
 
 
-def mesh_axis_size(mesh: DeviceMesh, names) -> int:
+def mesh_axis_names(mesh) -> tuple:
+    """The axis names of ``mesh``: a `DeviceMesh`'s dim names, or the keys
+    of a ``{name: size}`` mapping (the reference's ``mesh.shape``)."""
+    if isinstance(mesh, Mapping):
+        return tuple(mesh)
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def mesh_axis_size(mesh, names) -> int:
     """The product of the sizes of ``names`` (one name or several) among
-    the mesh's dims; a name the mesh lacks counts 1."""
+    the mesh's dims; a name the mesh lacks counts 1. ``mesh`` is a
+    `DeviceMesh` or a ``{name: size}`` mapping."""
     if isinstance(names, str):
         names = (names,)
-    dims = mesh.mesh_dim_names or ()
+    sizes = (dict(mesh) if isinstance(mesh, Mapping)
+             else dict(zip(mesh_axis_names(mesh), mesh.mesh.shape)))
     out = 1
     for name in names:
-        if name in dims:
-            out *= mesh.size(dims.index(name))
+        out *= sizes.get(name, 1)
     return out
 
 

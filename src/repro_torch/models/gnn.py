@@ -44,7 +44,7 @@ from torch import nn
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
-from repro_torch.models.schema import attach, default_generator, load_jax_params
+from repro_torch.models.schema import ParamDef, attach, default_generator, load_jax_params
 
 
 class GraphBatch(NamedTuple):
@@ -72,20 +72,21 @@ def batch_to(g: GraphBatch, device) -> GraphBatch:
 
 # ------------------------------------------------------------------ schema
 def _mlp_def(d_in: int, d_hidden: int, d_out: int, n: int, prefix=()) -> dict:
-    """An n-layer MLP's (shape, init) leaves, optionally stacked over
-    ``prefix`` leading dims."""
+    """An n-layer MLP's `ParamDef` leaves, optionally stacked over
+    ``prefix`` leading dims (logical axis ``layer``)."""
     pd = tuple(prefix)
+    pax = ("layer",) * len(pd)
     dims = [d_in] + [d_hidden] * (n - 1) + [d_out]
     sch = {}
     for i in range(n):
-        sch[f"w{i}"] = (pd + (dims[i], dims[i + 1]), "he")
-        sch[f"b{i}"] = (pd + (dims[i + 1],), "zeros")
+        sch[f"w{i}"] = ParamDef(pd + (dims[i], dims[i + 1]), pax + (None, "hidden"), "he")
+        sch[f"b{i}"] = ParamDef(pd + (dims[i + 1],), pax + ("hidden",), "zeros")
     return sch
 
 
 def gnn_schema(cfg: GNNConfig) -> dict:
-    """The JAX package's ``gnn_schema`` as a nested dict of
-    ``(shape, init kind)`` leaves, in its order."""
+    """The JAX package's ``gnn_schema`` as a nested dict of `ParamDef`s, in
+    its order, with its logical axes."""
     L, dh = cfg.n_layers, cfg.d_hidden
     sch: dict = {
         "enc_node": _mlp_def(cfg.d_in, dh, dh, 2),
@@ -94,13 +95,14 @@ def gnn_schema(cfg: GNNConfig) -> dict:
     if cfg.kind == "gin":
         sch["layers"] = _mlp_def(dh, dh, dh, 2, prefix=(L,))
         if cfg.learnable_eps:
-            sch["eps"] = ((L,), "zeros")
+            sch["eps"] = ParamDef((L,), ("layer",), "zeros")
     elif cfg.kind == "gatedgcn":
         sch["enc_edge"] = _mlp_def(max(cfg.d_edge, 1), dh, dh, 1)
         sch["layers"] = {
-            **{k: ((L, dh, dh), "he") for k in ("A", "B", "C", "U", "V")},
-            "norm_h": ((L, dh), "zeros"),
-            "norm_e": ((L, dh), "zeros"),
+            **{k: ParamDef((L, dh, dh), ("layer", None, "hidden"), "he")
+               for k in ("A", "B", "C", "U", "V")},
+            "norm_h": ParamDef((L, dh), ("layer", None), "zeros"),
+            "norm_e": ParamDef((L, dh), ("layer", None), "zeros"),
         }
     elif cfg.kind == "egnn":
         sch["layers"] = {

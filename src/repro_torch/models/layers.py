@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.sharding import logical, mesh_matmul
+
 _NAIVE_LIMIT = 2048 * 2048  # Sq*Skv above this → chunked path
 
 
@@ -131,19 +133,43 @@ def blocked_decode_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Flash-decoding (split-KV) for one-token decode: per-block softmax
-    stats (m, l, acc) computed block-locally, then combined across blocks."""
+    stats (m, l, acc) computed block-locally (`decode_block_stats`), then
+    combined across blocks (`combine_decode_blocks`)."""
     B, S, Nkv, H = k_cache.shape
     Nq = q.shape[2]
     G = Nq // Nkv
     Hv = v_cache.shape[-1]
     Sb = S // n_blocks
-    scale = scale if scale is not None else 1.0 / np.sqrt(H)
 
-    kb = k_cache.reshape(B, n_blocks, Sb, Nkv, H)
-    vb = v_cache.reshape(B, n_blocks, Sb, Nkv, Hv)
+    kb = logical(k_cache.reshape(B, n_blocks, Sb, Nkv, H),
+                 "batch", "kv_block", None, "kv_heads", None)
+    vb = logical(v_cache.reshape(B, n_blocks, Sb, Nkv, Hv),
+                 "batch", "kv_block", None, "kv_heads", None)
     pos_kb = pos_k.reshape(n_blocks, Sb)
-    qg = q.reshape(B, Nkv, G, H)
+    # replicate q across the model axis so every shard scores its own KV
+    # blocks locally — resharding activations, never weights
+    qg = logical(q.reshape(B, Nkv, G, H), "batch", None, None, None)
+    m_b, l_b, acc_b = decode_block_stats(qg, kb, vb, pos_q, pos_kb, window=window,
+                                         softcap=softcap, scale=scale)
+    out = combine_decode_blocks(m_b, l_b, acc_b)
+    return out.reshape(B, 1, Nq, Hv).to(q.dtype)
 
+
+def decode_block_stats(
+    qg: torch.Tensor,      # (B, Nkv, G, H)
+    kb: torch.Tensor,      # (B, nb, Sb, Nkv, H)
+    vb: torch.Tensor,      # (B, nb, Sb, Nkv, Hv)
+    pos_q: torch.Tensor,   # (1,)
+    pos_kb: torch.Tensor,  # (nb, Sb); < 0: an empty slot
+    *,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each KV block's softmax statistics for a one-token decode: ``(m (B,
+    nb, Nkv, G), l (B, nb, Nkv, G), acc (B, nb, Nkv, G, Hv))``, in
+    float32."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(kb.shape[-1])
     logits = torch.einsum("bkgh,bnskh->bnkgs", qg.float(), kb.float()) * scale
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
@@ -151,17 +177,24 @@ def blocked_decode_attention(
     if window is not None:
         ok &= pos_kb > pos_q[0] - window
     logits = torch.where(ok[None, :, None, None, :], logits, -1e30)
+    logits = logical(logits, "batch", "kv_block", "kv_heads", None, None)
 
     m_b = logits.amax(dim=-1)                           # (B, nb, Nkv, G)
     p = torch.exp(logits - m_b[..., None])
     l_b = p.sum(dim=-1)
     acc_b = torch.einsum("bnkgs,bnskh->bnkgh", p, vb.float())
+    return m_b, l_b, acc_b
+
+
+def combine_decode_blocks(m_b: torch.Tensor, l_b: torch.Tensor, acc_b: torch.Tensor) -> torch.Tensor:
+    """`decode_block_stats`' blocks (dim 1) combined: the attention output
+    ``(B, Nkv, G, Hv)`` in float32. On `DTensor`s sharded over the blocks
+    the reductions are collectives."""
     m = m_b.amax(dim=1)                                 # (B, Nkv, G)
     corr = torch.exp(m_b - m[:, None])
     l = (l_b * corr).sum(dim=1)
     acc = (acc_b * corr[..., None]).sum(dim=1)
-    out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(B, 1, Nq, Hv).to(q.dtype)
+    return acc / torch.clamp(l[..., None], min=1e-30)
 
 
 def causal_mask(q_len: int, kv_len: int, *, window: int | None = None) -> torch.Tensor:
@@ -176,8 +209,8 @@ def causal_mask(q_len: int, kv_len: int, *, window: int | None = None) -> torch.
 
 # ------------------------------------------------------------------- MLPs
 def glu_mlp(x: torch.Tensor, wi_gate, wi_up, wo, act: str) -> torch.Tensor:
-    g = x @ wi_gate
-    u = x @ wi_up
+    g = mesh_matmul(x, wi_gate)
+    u = mesh_matmul(x, wi_up)
     if act == "swiglu":
         h = F.silu(g).mul_(u)
     elif act == "geglu":
@@ -185,4 +218,5 @@ def glu_mlp(x: torch.Tensor, wi_gate, wi_up, wo, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     del g, u
-    return h @ wo
+    h = logical(h, "batch", "seq", "mlp")
+    return mesh_matmul(h, wo)

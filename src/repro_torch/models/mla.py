@@ -21,23 +21,27 @@ import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.schema import ParamDef
 
 
 def mla_schema(cfg: LMConfig) -> dict:
-    """The JAX package's ``mla_schema``: ``(shape, init kind, dtype)``
-    leaves in its order."""
+    """The JAX package's ``mla_schema``: `ParamDef` leaves in its order,
+    with its logical axes."""
     m = cfg.mla
     L, D, N = cfg.n_layers, cfg.d_model, cfg.n_heads
     dt = cfg.dtype
     return {
-        "wq_a": ((L, D, m.q_lora_rank), "lecun", dt),
-        "q_norm": ((L, m.q_lora_rank), "zeros", "float32"),
-        "wq_b": ((L, m.q_lora_rank, N, m.d_nope + m.d_rope), "lecun", dt),
-        "wkv_a": ((L, D, m.kv_lora_rank + m.d_rope), "lecun", dt),
-        "kv_norm": ((L, m.kv_lora_rank), "zeros", "float32"),
-        "wk_b": ((L, m.kv_lora_rank, N, m.d_nope), "lecun", dt),
-        "wv_b": ((L, m.kv_lora_rank, N, m.d_v), "lecun", dt),
-        "wo": ((L, N, m.d_v, D), "lecun", dt),
+        "wq_a": ParamDef((L, D, m.q_lora_rank), ("layer", "fsdp", "lora"), "lecun", dt),
+        "q_norm": ParamDef((L, m.q_lora_rank), ("layer", None), "zeros", "float32"),
+        "wq_b": ParamDef((L, m.q_lora_rank, N, m.d_nope + m.d_rope),
+                         ("layer", "lora", "heads", None), "lecun", dt),
+        "wkv_a": ParamDef((L, D, m.kv_lora_rank + m.d_rope), ("layer", "fsdp", None), "lecun", dt),
+        "kv_norm": ParamDef((L, m.kv_lora_rank), ("layer", None), "zeros", "float32"),
+        "wk_b": ParamDef((L, m.kv_lora_rank, N, m.d_nope), ("layer", "lora", "heads", None),
+                         "lecun", dt),
+        "wv_b": ParamDef((L, m.kv_lora_rank, N, m.d_v), ("layer", "lora", "heads", None),
+                         "lecun", dt),
+        "wo": ParamDef((L, N, m.d_v, D), ("layer", "heads", None, "fsdp"), "lecun", dt),
     }
 
 

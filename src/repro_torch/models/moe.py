@@ -23,25 +23,29 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.models.schema import ParamDef
 
 
 def moe_schema(cfg: MoEConfig, n_layers: int, d_model: int, dtype: str) -> dict:
-    """The JAX package's ``moe_schema``: ``(shape, init kind, dtype)``
-    leaves in its order."""
+    """The JAX package's ``moe_schema``: `ParamDef` leaves in its order,
+    with its logical axes."""
     e, f, L = cfg.n_experts, cfg.d_ff_expert, n_layers
     sch = {
-        "router": ((L, d_model, e), "lecun", "float32"),
-        "wi_gate": ((L, e, d_model, f), "lecun", dtype),
-        "wi_up": ((L, e, d_model, f), "lecun", dtype),
-        "wo": ((L, e, f, d_model), "lecun", dtype),
+        "router": ParamDef((L, d_model, e), ("layer", "embed", "expert"), "lecun", "float32"),
+        "wi_gate": ParamDef((L, e, d_model, f), ("layer", "expert", "fsdp", "expert_mlp"),
+                            "lecun", dtype),
+        "wi_up": ParamDef((L, e, d_model, f), ("layer", "expert", "fsdp", "expert_mlp"),
+                          "lecun", dtype),
+        "wo": ParamDef((L, e, f, d_model), ("layer", "expert", "expert_mlp", "fsdp"), "lecun",
+                       dtype),
     }
     if cfg.router_bias_balancing:
-        sch["router_bias"] = ((L, e), "zeros", "float32")
+        sch["router_bias"] = ParamDef((L, e), ("layer", "expert"), "zeros", "float32")
     if cfg.n_shared:
         fs = f * cfg.n_shared
-        sch["shared_wi_gate"] = ((L, d_model, fs), "lecun", dtype)
-        sch["shared_wi_up"] = ((L, d_model, fs), "lecun", dtype)
-        sch["shared_wo"] = ((L, fs, d_model), "lecun", dtype)
+        sch["shared_wi_gate"] = ParamDef((L, d_model, fs), ("layer", "fsdp", "mlp"), "lecun", dtype)
+        sch["shared_wi_up"] = ParamDef((L, d_model, fs), ("layer", "fsdp", "mlp"), "lecun", dtype)
+        sch["shared_wo"] = ParamDef((L, fs, d_model), ("layer", "mlp", "fsdp"), "lecun", dtype)
     return sch
 
 

@@ -25,30 +25,36 @@ from torch import nn
 
 from repro_torch.configs.base import RecSysConfig
 from repro_torch.core.backend import Kernels, resolve_device, resolve_kernels
-from repro_torch.models.schema import default_generator, init_param, load_jax_params
+from repro_torch.models.schema import ParamDef, attach, default_generator, load_jax_params
 
 
-def recsys_schema(cfg: RecSysConfig) -> dict[str, tuple[tuple[int, ...], str]]:
-    """Parameter name → (shape, init kind), in the JAX schema's order; a
-    dotted name is a leaf of a nested group (``cin.w0``)."""
+def recsys_schema(cfg: RecSysConfig) -> dict:
+    """The JAX package's ``recsys_schema``: a nested dict of `ParamDef`s in
+    its order, with its logical axes."""
     F, V, d = cfg.n_sparse, cfg.vocab_per_field, cfg.embed_dim
     m = F
-    sch: dict[str, tuple[tuple[int, ...], str]] = {
-        "tables": ((F, V, d), "embed"),
-        "linear": ((F, V), "zeros"),
-        "bias": ((), "zeros"),
+    sch: dict = {
+        "tables": ParamDef((F, V, d), ("field", "rows", "embed"), "embed"),
+        "linear": ParamDef((F, V), ("field", "rows"), "zeros"),
+        "bias": ParamDef((), (), "zeros"),
     }
     h_prev = m  # CIN layer k maps (H_{k-1} × m) interaction maps → H_k
+    cin = {}
     for i, h_k in enumerate(cfg.cin_layers):
-        sch[f"cin.w{i}"] = ((h_prev * m, h_k), "he")
+        cin[f"w{i}"] = ParamDef((h_prev * m, h_k), (None, "cin"), "he")
         h_prev = h_k
-    sch["cin_out"] = ((sum(cfg.cin_layers), 1), "lecun")
+    sch["cin"] = cin
+    sch["cin_out"] = ParamDef((sum(cfg.cin_layers), 1), (None, None), "lecun")
+    # DNN (the final projection to the scalar logit cannot shard its dim 1)
     dims = [F * d] + list(cfg.mlp_layers) + [1]
+    dnn = {}
     for i in range(len(dims) - 1):
-        sch[f"dnn.w{i}"] = ((dims[i], dims[i + 1]), "he")
-        sch[f"dnn.b{i}"] = ((dims[i + 1],), "zeros")
-    sch["user_proj"] = ((F * d, d), "lecun")
-    sch["item_proj"] = ((d, d), "lecun")
+        last = i == len(dims) - 2
+        dnn[f"w{i}"] = ParamDef((dims[i], dims[i + 1]), (None, None if last else "mlp"), "he")
+        dnn[f"b{i}"] = ParamDef((dims[i + 1],), (None if last else "mlp",), "zeros")
+    sch["dnn"] = dnn
+    sch["user_proj"] = ParamDef((F * d, d), (None, "embed"), "lecun")
+    sch["item_proj"] = ParamDef((d, d), (None, "embed"), "lecun")
     return sch
 
 
@@ -116,15 +122,7 @@ class XDeepFM(nn.Module):
             generator = default_generator(dev)
         self.cfg = cfg
         self.kernels = resolve_kernels(kernels, dev)
-        self.cin = nn.ParameterDict()
-        self.dnn = nn.ParameterDict()
-        for name, (shape, kind) in recsys_schema(cfg).items():
-            p = nn.Parameter(init_param(shape, kind, generator, dev), requires_grad=False)
-            group, _, leaf = name.rpartition(".")
-            if group:
-                getattr(self, group)[leaf] = p
-            else:
-                self.register_parameter(name, p)
+        attach(self, recsys_schema(cfg), generator, dev)
 
     @property
     def device(self) -> torch.device:

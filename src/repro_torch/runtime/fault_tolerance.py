@@ -1,14 +1,14 @@
 """Fault tolerance for long-running training: the port of
-``src/repro/runtime/fault_tolerance.py``, on one device.
+``src/repro/runtime/fault_tolerance.py``.
 
   * **checkpoint/restart** — `TrainSupervisor` wraps the step loop with
     periodic async checkpoints and restart-from-latest; a failure injector
     simulates preemptions and the loop resumes losslessly (bitwise-equal
     state to an uninterrupted run, since steps are deterministic).
   * **elastic restore** — `elastic_restore` restores the latest checkpoint
-    onto a device; onto another mesh it waits for the model sharding of
-    the port's ``torch.distributed`` path (``ROADMAP.md``, Queue 1: its
-    next slice).
+    onto a device, or onto another mesh: a checkpoint saved from DTensors
+    on N ranks (`Checkpointer.save` gathers each leaf, rank 0 writes)
+    restores onto M ranks with new ``(mesh, placements)``.
   * **straggler detection** — the supervisor keeps an EWMA of the step
     time and flags a step slower than ``straggler_factor`` × it
     (`straggler_update`), so a launcher can act between checkpoints.
@@ -105,11 +105,12 @@ class TrainSupervisor:
         return state, history
 
 
-def elastic_restore(checkpointer: Checkpointer, like, device=None):
-    """Restore the latest checkpoint in ``like``'s structure onto ``device``
-    (the single-card counterpart of the JAX package's restore onto a new
-    mesh). Returns ``(tree, step)``."""
+def elastic_restore(checkpointer: Checkpointer, like, device=None, *, shardings=None):
+    """Restore the latest checkpoint in ``like``'s structure: onto another
+    mesh with ``shardings`` (a tree of ``(mesh, placements)``, as the JAX
+    package's restore onto new shardings after losing or gaining hosts),
+    else onto ``device``. Returns ``(tree, step)``."""
     latest = checkpointer.latest_step()
     if latest is None:
         raise FileNotFoundError(f"no checkpoint under {checkpointer.directory}")
-    return checkpointer.restore(latest, like, device), latest
+    return checkpointer.restore(latest, like, device, shardings=shardings), latest

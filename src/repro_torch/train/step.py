@@ -18,12 +18,15 @@ part's nodes, which JAX clamps and PyTorch refuses).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import torch
 
 from repro_torch import optim
 from repro_torch.configs.base import GNNConfig, LMConfig, RecSysConfig
+from repro_torch.launch.rules import make_rules
+from repro_torch.launch.sharding import axis_rules, shard_input
 from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import transformer as tf
@@ -158,6 +161,13 @@ def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
         for ``token (B, 1)`` at position ``pos`` (an int); the cache is
         written in place.
 
+    A model on a mesh (``model.mesh``) runs each under
+    ``axis_rules(mesh, make_rules(cfg, kind, mesh))``: its inputs enter as
+    DTensors with the cell's axes (``("batch", "seq")`` for tokens) and its
+    logits and cache come back as DTensors (``.full_tensor()`` gathers
+    them); a decode's cache must have been placed by the ``decode`` rules
+    once (`models.transformer.grow_cache` under them).
+
     For `GNNConfig` (``model`` a `repro_torch.models.gnn.GNN`):
 
       * ``"infer"(graph)`` → the model's outputs for a `GraphBatch`.
@@ -177,13 +187,26 @@ def make_serve_fns(cfg, model) -> dict[str, Callable[..., Any]]:
         return torch.as_tensor(x, device=model.device)
 
     if isinstance(cfg, LMConfig):
+        mesh = getattr(model, "mesh", None)
+
+        def scope(kind):
+            if mesh is None:
+                return contextlib.nullcontext()
+            return axis_rules(mesh, make_rules(cfg, kind, mesh))
+
+        # DTensor parameters refuse inference mode (an inference tensor has
+        # no version counter to give a view): a mesh runs under no_grad
+        grad_off = torch.inference_mode if mesh is None else torch.no_grad
+
         def prefill(tokens):
-            with torch.inference_mode():
-                return model.prefill(on(tokens))
+            with grad_off(), scope("prefill"):
+                return model.prefill(shard_input(on(tokens), "batch", "seq"))
 
         def decode(cache, token, pos):
-            with torch.inference_mode():
-                return model.decode_step(cache, on(token), pos)
+            with grad_off(), scope("decode"):
+                if mesh is not None:
+                    tf.place_cache(cache)  # a prefill's cache: moved once
+                return model.decode_step(cache, shard_input(on(token), "batch", None), pos)
 
         return {"prefill": prefill, "decode": decode}
 

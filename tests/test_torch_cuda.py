@@ -995,3 +995,85 @@ def test_gloo_takes_cuda_tensors_where_the_staging_rule_leaves_them(dev):
         np.testing.assert_array_equal(mask, [peer == 0, peer == 1, True])
         # each operand out and each result back: (3 words of 4 + 3 bools) · 2
         assert r["staged"] == {"probe": 2 * (12 + 3)}
+
+
+@pytest.mark.parametrize("case,mesh_type", [(c, None) for c in (
+    "all_reduce", "all_gather", "reduce_scatter", "all_to_all")] + [(c, "cuda") for c in (
+        "partial_to_replicate", "partial_to_shard", "shard_to_replicate", "shard_to_shard")])
+def test_gloo_takes_the_collectives_dtensor_uses(dev, case, mesh_type):
+    """Two gloo ranks on ``cuda:0``, bf16 and fp32: each functional
+    collective that DTensor's redistributions call, and each redistribution
+    on a mesh of device type ``"cuda"``, under the staging rule of
+    `rank_collectives.stage_functional_collectives`: every result right
+    and on the card; only the all-gather staged through the host."""
+    import mesh_fns
+    from repro_torch.core.rank_collectives import GLOO_FUNCTIONAL_HOST_OPS
+    from repro_torch.launch import spawn_ranks
+
+    assert GLOO_FUNCTIONAL_HOST_OPS == {"all_gather_into_tensor"}
+    res = spawn_ranks(mesh_fns.gloo_collective_rank, 2, case, mesh_type, timeout=300)
+    x = [np.arange(8, dtype=np.float32) + r for r in range(2)]
+    want = {"all_reduce": [x[0] + x[1]] * 2, "all_gather": [np.concatenate(x)] * 2,
+            "reduce_scatter": [(x[0] + x[1])[:4], (x[0] + x[1])[4:]],
+            "all_to_all": [np.concatenate([x[0][:4], x[1][:4]]),
+                           np.concatenate([x[0][4:], x[1][4:]])],
+            "partial_to_replicate": [(x[0] + x[1]).reshape(2, 4)] * 2,
+            "partial_to_shard": [(x[0] + x[1]).reshape(2, 4)[r:r + 1] for r in range(2)],
+            "shard_to_replicate": [np.concatenate([x[0].reshape(2, 4), x[1].reshape(2, 4)])] * 2,
+            "shard_to_shard": [np.concatenate([x[0].reshape(2, 4), x[1].reshape(2, 4)])[
+                :, 2 * r:2 * r + 2] for r in range(2)]}[case]
+    gathers = case in ("all_gather", "shard_to_replicate")
+    for rank, r in enumerate(res):
+        for dt in ("bfloat16", "float32"):
+            device, got = r[dt]
+            assert device == "cuda", (case, dt)
+            np.testing.assert_array_equal(got, want[rank])
+        assert bool(r["staged"]) == gathers, r["staged"]
+
+
+def test_gloo_all_gather_of_cuda_tensors_needs_the_staging_rule(dev):
+    """Why `GLOO_FUNCTIONAL_HOST_OPS` holds the all-gather: without the
+    staging rule, gloo's ``all_gather_into_tensor`` of a CUDA tensor kills
+    the rank (SIGSEGV) on this machine's torch."""
+    import mesh_fns
+    from repro_torch.launch import spawn_ranks
+
+    with pytest.raises(RuntimeError, match="exited with code -11"):
+        spawn_ranks(mesh_fns.gloo_collective_rank, 2, "all_gather", None, "cuda", False,
+                    timeout=300)
+
+
+def test_mesh_lm_on_card_matches_the_one_card_forward(dev):
+    """gemma-2b smoke on 2 gloo ranks sharing ``cuda:0`` (``(data=1,
+    model=2)``: heads, MLP and vocab over ``model``), drawn from seed 0 leaf
+    by leaf: the prefill's logits and three decode steps' equal the one-card
+    model's within ``[lm]``'s smoke tolerance (1e-4 of each row's max); each
+    rank's prefill launches the split-TF32 attention kernel once a layer and
+    no other route; no rank builds a kernel library (the parent built
+    them)."""
+    import mesh_fns
+    from repro_torch.configs import gemma_2b
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.launch import spawn_ranks
+    from repro_torch.models.transformer import Transformer, grow_cache
+    from repro_torch.train.step import make_serve_fns
+
+    cuda.build()
+    cfg = gemma_2b.smoke()
+    tokens = lm_batch(cfg, 2, 64, seed=0, step=0)["tokens"]
+    decode_tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 2, 1)).astype(np.int32)
+    res = spawn_ranks(mesh_fns.lm_rank, 2, "cuda:0", {"data": 1, "model": 2}, "gemma-2b", {},
+                      tokens, decode_tokens, None, timeout=600)
+    model = Transformer(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    fns = make_serve_fns(cfg, model)
+    logits, cache = fns["prefill"](tokens)
+    cache = grow_cache(cache, tokens.shape[1] + len(decode_tokens))
+    want = [logits.float().cpu().numpy()]
+    for i, tok in enumerate(decode_tokens):
+        want.append(fns["decode"](cache, tok, tokens.shape[1] + i)[0].float().cpu().numpy())
+    for r in res:
+        assert r["sources_built"] == 0
+        assert r["launches"] == {"flash_attention_tf32": cfg.n_layers}, r["launches"]
+        for got, w in zip([r["logits"]] + r["decode"], want):
+            scale = np.abs(w).max(axis=-1, keepdims=True)
+            assert (np.abs(got - w) <= 1e-4 * scale).all(), np.max(np.abs(got - w) / scale)

@@ -305,3 +305,61 @@ def test_opt_cfg_shrink_and_variant_equal_reference():
                             want.moe.dispatch_groups if want.moe else None]), (arch, kind)
             else:
                 assert repr(got) == repr(want), (arch, kind)
+
+
+POD_SCRIPT = r"""
+import json
+from repro_torch.extras import dryrun
+rec = dryrun.run_cell("gemma-2b", "prefill_32k", save=False, mesh="single-pod")
+try:
+    dryrun.run_cell("mixtral-8x22b", "prefill_32k", save=False, mesh="single-pod")
+    refused = None
+except NotImplementedError as e:
+    refused = str(e)
+print(json.dumps({"record": rec, "refused": refused}, default=str))
+"""
+
+
+@pytest.mark.slow
+def test_pod_mesh_cell_in_its_own_process():
+    """gemma-2b ``prefill_32k`` priced a chip on the single-pod mesh (a
+    world of 256 fake ranks, so a process of its own): its per-rank
+    parameter bytes equal those derived from the JAX package's
+    ``param_pspecs`` under the JAX rules at ``(data=16, model=16)``; the
+    path's collectives are all-reduces and the FSDP all-gathers; a cell of
+    a later slice raises `NotImplementedError` naming its ROADMAP item."""
+    import os
+    import subprocess
+    import sys
+
+    from repro.launch import rules as jrules
+    from repro.launch import sharding as jsharding
+    from repro.models import schema as jschema
+    from repro.models import transformer as jtf
+
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run([sys.executable, "-c", POD_SCRIPT], capture_output=True, text=True,
+                          env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec = out["record"]
+    assert (rec["status"], rec["mesh"], rec["n_chips"]) == ("ok", "16x16", 256), rec
+    jcfg = jget("gemma-2b").config
+    sizes = {"data": 16, "model": 16}
+    with jsharding.axis_rules(None, jrules.make_rules(jcfg, "prefill", type(
+            "M", (), {"shape": sizes})())):
+        specs = jax.tree.leaves(jschema.param_pspecs(jtf.lm_schema(jcfg)),
+                                is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    leaves = jax.tree.leaves(jschema.abstract_params(jtf.lm_schema(jcfg)))
+    want = 0
+    for spec, leaf in zip(specs, leaves):
+        local = [d // int(np.prod([sizes[a] for a in ((e,) if isinstance(e, str) else e or ())]))
+                 for d, e in zip(leaf.shape, tuple(spec) + (None,) * len(leaf.shape))]
+        want += int(np.prod(local)) * leaf.dtype.itemsize
+    assert rec["memory"]["param_bytes"] == want
+    assert rec["fits"] and rec["memory"]["peak_bytes"] < 80e9
+    counts = rec["collectives"]["count_by_kind"]
+    assert counts["all-reduce"] > 0 and counts["all-gather"] > 0, counts
+    assert rec["roofline"]["n_chips"] == 256 and rec["flops"] > 0
+    assert "slice 1" in out["refused"] and "ROADMAP.md" in out["refused"]
